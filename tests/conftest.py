@@ -32,3 +32,8 @@ def _reset_globals():
     np.random.seed(0)
     yield
     gv.default()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card (skips without one)")

@@ -1,0 +1,43 @@
+"""The port stands alone: importing every module of opticomlib_tpu_torch
+imports neither JAX nor the JAX package, and asking for a CUDA device
+without a card raises instead of falling back to the CPU."""
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+_MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
+            "opticomlib_tpu_torch.convert", "opticomlib_tpu_torch.eyediag",
+            "opticomlib_tpu_torch.params", "opticomlib_tpu_torch.ops.kernels",
+            "opticomlib_tpu_torch.ops._build",
+            "opticomlib_tpu_torch.ops.ssfm",
+            "opticomlib_tpu_torch.ops.eyeana", "opticomlib_tpu_torch.ops.noise",
+            "opticomlib_tpu_torch.ops.filters",
+            "opticomlib_tpu_torch.ops.pulses", "opticomlib_tpu_torch.ops.prbs",
+            "opticomlib_tpu_torch.utils.analysis")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'opticomlib_tpu.'))\n"
+        "             or m == 'opticomlib_tpu')\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    from opticomlib_tpu_torch import LinkSpec, SimParams, build_link
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_link(LinkSpec(), 16, SimParams.create(sps=8, R=1e9,
+                                                    _warn=False),
+                   device="cuda")

@@ -1,0 +1,97 @@
+"""The port's split-step solver (opticomlib_tpu_torch.ops.ssfm) against the
+JAX package's (opticomlib_tpu.ops.ssfm) on config-2 physics (BASELINE.json
+config 2: 50 km, alpha 0.2 dB/km, beta2 -21 ps^2/km, gamma 1.3 /W/km,
+phi_max 0.01, 20 mW peak) at 2^14 samples.
+
+Both step controllers run in float32, so the step counts must be equal;
+the fields must agree to relative L2 <= 1e-4 (float32 FFT round-off over
+tens of steps, measured ~1e-5).
+"""
+import numpy as np
+import pytest
+import torch
+
+from opticomlib_tpu.ops import ssfm as jssfm
+from opticomlib_tpu_torch.ops import kernels
+from opticomlib_tpu_torch.ops import ssfm as tssfm
+
+torch.set_num_threads(2)
+
+N, SPS, R = 2**14, 64, 10e9
+CFG = dict(length=50.0, alpha=0.2, beta_2=-21.0, gamma=1.3, phi_max=0.01)
+PEAK_W = 0.02
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def launch_field():
+    rng = np.random.default_rng(42)
+    bits = rng.integers(0, 2, N // SPS)
+    A = (np.repeat(bits, SPS) * np.sqrt(PEAK_W)).astype(np.complex64)
+    w = 2 * np.pi * np.fft.fftfreq(N) * R * SPS
+    phi_w = jssfm.dispersion_phase(w, CFG["beta_2"], 0.0)
+    return A, phi_w
+
+
+def test_copied_helpers_agree():
+    w = 2 * np.pi * np.fft.fftfreq(1024) * 640e9
+    np.testing.assert_array_equal(tssfm.dispersion_phase(w, -21.0, 0.1),
+                                  jssfm.dispersion_phase(w, -21.0, 0.1))
+    assert tssfm.alpha_per_km(0.2) == jssfm.alpha_per_km(0.2)
+    for length, h in [(50.0, 1.0), (50.0, 0.3), (1.0, 2.0)]:
+        np.testing.assert_array_equal(tssfm.ssfm_step_schedule(length, h),
+                                      jssfm.ssfm_step_schedule(length, h))
+    assert (tssfm.adaptive_h0(0.01, 1.3, 0.02, 50.0)
+            == jssfm.adaptive_h0(0.01, 1.3, 0.02, 50.0))
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_while_loop_matches_jax(launch_field, adaptive):
+    A, phi_w = launch_field
+    a_km = jssfm.alpha_per_km(CFG["alpha"])
+    maxP0 = float(np.max(np.abs(A) ** 2))
+    h0 = (min(CFG["phi_max"] / (CFG["gamma"] * maxP0), CFG["length"])
+          if adaptive else 0.7)
+    re, im, steps_j = jssfm._ssfm_loop(
+        A.real.copy(), A.imag.copy(), phi_w, CFG["length"], CFG["gamma"],
+        CFG["phi_max"], h0, a_km, adaptive=adaptive)
+    out_j = np.asarray(re) + 1j * np.asarray(im)
+
+    kernels.reset_launches()
+    out_t, steps_t = tssfm.ssfm_while_inside(
+        torch.from_numpy(A), torch.from_numpy(phi_w), CFG["length"],
+        CFG["gamma"], CFG["phi_max"], h0, a_km, adaptive=adaptive)
+    assert steps_t == int(steps_j)
+    assert _rel_l2(out_t.numpy(), out_j) <= 1e-4
+    assert kernels.LAUNCHES["cmul"] == 0  # CPU tensors: plain versions
+
+
+def test_scan_matches_jax(launch_field):
+    A, phi_w = launch_field
+    a_km = jssfm.alpha_per_km(CFG["alpha"])
+    hs = jssfm.ssfm_step_schedule(CFG["length"], 0.7)  # 71 steps + remainder
+    re, im = jssfm._ssfm_scan(A.real.copy(), A.imag.copy(), phi_w, hs,
+                              CFG["gamma"], a_km)
+    out_j = np.asarray(re) + 1j * np.asarray(im)
+    out_t = tssfm.ssfm_scan_inside(torch.from_numpy(A),
+                                   torch.from_numpy(phi_w), hs,
+                                   CFG["gamma"], a_km)
+    assert _rel_l2(out_t.numpy(), out_j) <= 1e-4
+
+
+def test_two_polarizations_propagate_independently(launch_field):
+    """A (2, n) field: each row equals its own 1-pol propagation (the
+    spectral factor broadcasts over rows)."""
+    A, phi_w = launch_field
+    a_km = jssfm.alpha_per_km(CFG["alpha"])
+    A2 = torch.from_numpy(np.stack([A, 0.5 * A[::-1].copy()]))
+    hs = np.full(5, 0.5, np.float32)
+    out2 = tssfm.ssfm_scan_inside(A2, torch.from_numpy(phi_w), hs,
+                                  CFG["gamma"], a_km)
+    for r in range(2):
+        out1 = tssfm.ssfm_scan_inside(A2[r].clone(), torch.from_numpy(phi_w),
+                                      hs, CFG["gamma"], a_km)
+        assert _rel_l2(out2[r].numpy(), out1.numpy()) <= 1e-6
