@@ -4,8 +4,10 @@
 arrays, complex ones split into planar ``<name>_re`` / ``<name>_im`` float32
 pairs (a workaround for complex transfers on the TPU runtime).
 :func:`consts_from_jax` recombines those pairs into complex64 and passes the
-real arrays (``phi_w_*``, ``H2_*``) through, giving the names of
-:class:`opticomlib_tpu_torch.link.LinkProgram`'s buffers, so
+real arrays (``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``,
+``df_phase``) through under their names, which are the names of
+:class:`opticomlib_tpu_torch.link.LinkProgram`'s buffers (the two builders
+number the spectral arrays with one counter in stage order), so
 ``prog.load_consts(consts_from_jax(jax_prog.consts))`` runs the port on the
 JAX program's own constants.
 """

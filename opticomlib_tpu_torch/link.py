@@ -1,24 +1,26 @@
-"""The fused OOK link on torch: bits -> DAC -> laser + MZM -> fiber / EDFA
-stages -> photodiode -> Bessel LPF -> slot samples, and the receiver
-(eye metrology -> threshold -> slicer -> error count).
+"""The fused OOK link on torch: bits -> DAC -> laser + MZM/PM -> fiber /
+EDFA / DBP / DM / BPF stages -> photodiode -> Bessel LPF -> optional ADC ->
+slot samples, and the receiver (eye metrology -> threshold -> slicer ->
+error count).
 
-Port of ``opticomlib_tpu.link`` (``LinkSpec``, ``build_link``,
-``LinkProgram.fn`` / ``run`` / ``dsp``).  The physics and the order of
-operations are the JAX program's; what differs:
+Port of ``opticomlib_tpu.link`` (``LinkSpec``, the stage specs,
+``build_link``, ``LinkProgram.fn`` / ``run`` / ``dsp``).  The physics and
+the order of operations are the JAX program's; what differs:
 
 * ``LinkProgram`` is an ``nn.Module`` whose spectral constants (``Hp``,
-  ``phi_w_*``, ``H2_pd``) are registered buffers in complex64 / float32 on
-  the device given to :func:`build_link`.  There is no default device.
+  ``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``, ``df_phase``) are
+  registered buffers in complex64 / float32 on the device given to
+  :func:`build_link`, named as the JAX program names its constants.  There
+  is no default device.
 * Noise draws come from a ``torch.Generator`` on that device, seeded by
   ``seed=``.  Torch cannot reproduce JAX's threefry keys, so ``forward``,
-  ``run`` and ``dsp`` take ``noise=``, a dict of unit-normal draws
-  (``"ase"``: one ``(4, n)`` array per noisy EDFA, ``"thermal"`` and
-  ``"shot"``: ``(n,)``), consumed in the JAX key-stream order.
-* The program runs eagerly; the adaptive fiber loop syncs with the host
-  once per step.
-
-Options of the JAX ``LinkSpec`` that this port does not carry yet raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+  ``run`` and ``dsp`` take ``noise=``, a dict of unit-normal draws consumed
+  in the JAX key-stream order: ``"phase"`` and ``"rin"`` ``(n,)`` (laser),
+  ``"ase"`` one ``(4, n)`` array per noisy EDFA in the order the EDFAs
+  run (``RepeatSpec`` spans unrolled), ``"thermal"`` and ``"shot"``
+  ``(n,)``.
+* The program runs eagerly: ``RepeatSpec`` is a Python loop over its spans,
+  and the adaptive fiber loops sync with the host once per step.
 
 Typical use::
 
@@ -34,6 +36,9 @@ Typical use::
 """
 from __future__ import annotations
 
+import itertools
+import math
+import warnings
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional, Tuple
@@ -43,23 +48,38 @@ import torch
 from scipy.constants import e, k as kB, pi
 
 from .eyediag import Eye
-from .ops import filters, pulses, ssfm
-from .ops.eyeana import eye_metrics, linspace
-from .ops.noise import ase_sigma, gaussian
+from .ops import filters, kernels, pulses, ssfm
+from .ops.eyeana import _shortest_int_masked, eye_metrics, linspace
+from .ops.noise import ase_sigma, gaussian, wiener_phase
 from .ops.prbs import prbs
 from .params import SimParams
 from .utils.analysis import idb, idbm
 
-__all__ = ["FiberSpec", "EDFASpec", "LinkSpec", "LinkProgram", "build_link"]
+__all__ = ["FiberSpec", "DBPSpec", "EDFASpec", "DMSpec", "BPFSpec",
+           "RepeatSpec", "LinkSpec", "LinkProgram", "build_link"]
 
 _EYE_TRACE_KEYS = ("y", "t", "y_top", "y_bot", "y_25_75")
 f32 = np.float32
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to opticomlib_tpu_torch yet (ROADMAP.md, "
-        f"'Left out of the first slice', item {item})")
+def _warn_rin():
+    """The RuntimeWarning for a clamped RIN draw (``rin_ok`` False): the
+    program clamps ``1 + rin`` at 0 where the staged LASER, like the
+    reference (devices.py:492-500), raises."""
+    warnings.warn(
+        "RIN draw crossed -1 and was clamped to dark (the staged LASER "
+        "raises here, reference devices.py:492-500); decrease `rin` or "
+        "change the seed.", RuntimeWarning, stacklevel=3)
+
+
+def _adc_quantize(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """In-graph ADC: uniform quantisation over the robust 99.99 %
+    shortest-interval range (reference devices.py:1616-1627).  The range
+    stays on the device; the quantiser is the ``adc_quantize`` kernel in
+    link mode (half-to-even codes, no clip)."""
+    lo, hi = _shortest_int_masked(v, torch.ones_like(v, dtype=torch.bool),
+                                  99.99)
+    return kernels.adc_quantize_link(v, lo, hi, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +88,9 @@ def _not_ported(what: str, item: int):
 @dataclass(frozen=True)
 class FiberSpec:
     """One fiber span (reference devices.py:1038-1206).  ``h=None`` adapts
-    the step to ``phi_max``; a fixed ``h`` runs a fixed schedule.  Only the
-    reference scheme (``method="reference"``) is ported."""
+    the step (``phi_max`` for the reference scheme, the local-error target
+    ``tol`` for ``"o4"`` and ``"local_error"``); a fixed ``h`` runs a fixed
+    schedule (``"reference"`` or the 4th-order ``"o4"``)."""
     length: float                 # [km]
     alpha: float = 0.0            # [dB/km]
     beta_2: float = 0.0           # [ps^2/km]
@@ -100,9 +121,20 @@ class FiberSpec:
 
 
 @dataclass(frozen=True)
+class DBPSpec(FiberSpec):
+    """Digital back-propagation span: the fiber physics with every operator
+    sign flipped (reference devices.py:1280-1283).  ``undo_gain_dB`` is
+    divided out of the field before the backward pass (set it to the span
+    amplifier's gain)."""
+    undo_gain_dB: float = 0.0
+
+
+@dataclass(frozen=True)
 class EDFASpec:
     """Flat-gain amplifier + 2-pol ASE (reference devices.py:829-942).
-    ``NF=None`` disables the ASE draw (a pure field scale)."""
+    ``NF=None`` disables the ASE draw (a pure field scale; negative ``G``
+    attenuates).  ``BW`` adds the output band-pass (zero-phase Bessel
+    ``|H|^2``, reference devices.py:938-941)."""
     G: float                      # gain [dB]
     NF: Optional[float] = None    # noise figure [dB]; None -> no ASE
     BW: Optional[float] = None    # optional output optical filter [Hz]
@@ -114,10 +146,50 @@ class EDFASpec:
 
 
 @dataclass(frozen=True)
+class DMSpec:
+    """Dispersive medium ``H = exp(j*w^2*D/2)``, ``D`` the accumulated GVD
+    [ps^2] (reference devices.py:945-1035); ``D = -beta_2*length``
+    compensates a span."""
+    D: float                      # accumulated dispersion [ps^2]
+
+
+@dataclass(frozen=True)
+class BPFSpec:
+    """Optical band-pass: zero-phase Bessel ``|H|^2`` of full bandwidth
+    ``BW`` (baseband low-pass at BW/2, reference devices.py:788-826)."""
+    BW: float                     # full optical bandwidth [Hz]
+    n: int = 4                    # filter order
+
+    def __post_init__(self):
+        if self.BW <= 0:
+            raise ValueError("BPFSpec.BW must be > 0 Hz")
+
+
+@dataclass(frozen=True)
+class RepeatSpec:
+    """``n`` repetitions of a stage block (the 20 x 80 km configs).  The
+    field is promoted to 2 polarisations before the first span when the
+    block holds a noisy EDFA."""
+    n: int
+    stages: Tuple = ()
+
+    def __post_init__(self):
+        if self.n < 1:
+            raise ValueError("RepeatSpec.n must be >= 1")
+        if not self.stages:
+            raise ValueError("RepeatSpec.stages must be non-empty")
+        for st in self.stages:
+            if isinstance(st, RepeatSpec):
+                raise ValueError("RepeatSpec cannot nest")
+            if not isinstance(st, (FiberSpec, EDFASpec, DMSpec, BPFSpec)):
+                raise ValueError(f"unsupported stage in RepeatSpec: {st!r}")
+
+
+@dataclass(frozen=True)
 class LinkSpec:
     """Full-link configuration (TX + channel stages + RX); field semantics
     match the JAX package's ``LinkSpec`` (DAC/LASER/MZM: reference
-    devices.py:185-785; PD: devices.py:1378-1555)."""
+    devices.py:185-785; PD: devices.py:1378-1555; ADC: 1558-1632)."""
     # --- DAC ---
     pulse_shape: str = "gaussian"         # 'nrz' | 'gaussian' | 'rcos'
     pulse_kwargs: Tuple = ()              # (('m', 2), ('c', 0.0), ...)
@@ -172,20 +244,13 @@ class LinkSpec:
             raise ValueError("pulse_span must be >= 1 slot")
         if self.adc_bits is not None and not 1 <= int(self.adc_bits) <= 16:
             raise ValueError("adc_bits must be in [1, 16] (or None)")
-        dict(self.pulse_kwargs)  # must be (('key', val), ...) pairs
-        # --- options the port does not carry yet ---
-        for name in ("lw", "rin", "df"):
-            if getattr(self, name):
-                raise _not_ported(f"LinkSpec.{name} (laser noise/offset)", 1)
-        if self.modulator.lower() == "pm":
-            raise _not_ported("LinkSpec(modulator='pm')", 2)
-        if self.adc_bits is not None:
-            raise _not_ported("LinkSpec.adc_bits (in-graph ADC)", 5)
         for st in self.stages:
-            if not isinstance(st, (FiberSpec, EDFASpec)):
-                raise _not_ported(
-                    f"stage {type(st).__name__} (DMSpec/BPFSpec/DBPSpec/"
-                    "RepeatSpec)", 3)
+            if not isinstance(st, (FiberSpec, EDFASpec, DMSpec, BPFSpec,
+                                   RepeatSpec)):
+                raise ValueError(
+                    f"unsupported stage {st!r}; expected FiberSpec/DBPSpec/"
+                    "EDFASpec/DMSpec/BPFSpec/RepeatSpec")
+        dict(self.pulse_kwargs)  # must be (('key', val), ...) pairs
 
 
 # ---------------------------------------------------------------------------
@@ -221,37 +286,54 @@ def _circular_zero_phase_spectrum(h: np.ndarray, n: int) -> np.ndarray:
     return np.fft.fft(buf).astype(np.complex64)
 
 
-def _stage_plan(stages, f0: float, fs: float, phi_name):
-    """Per-stage constants from the specs.  ``phi_name(st)`` registers the
-    fiber's dispersion phase array and returns its buffer name."""
-    plan = []
-    for st in stages:
-        if isinstance(st, FiberSpec):
-            if st.method != "reference":
-                raise _not_ported(f"FiberSpec(method={st.method!r})", 4)
-            linear_only = st.gamma == 0 or (st.beta_2 == 0
-                                            and st.beta_3 == 0)
-            if st.h is not None:
-                hs = ssfm.ssfm_step_schedule(st.length, st.h)
-            elif linear_only:  # one exact step; nothing to adapt to
-                hs = np.asarray([st.length], dtype=np.float32)
-            else:
-                hs = None      # phi_max-adaptive
-            plan.append({"kind": "fiber", "hs": hs, "phi_name": phi_name(st),
-                         "a_km": ssfm.alpha_per_km(st.alpha)})
-        elif isinstance(st, EDFASpec):
-            if st.BW is not None:
-                raise _not_ported("EDFASpec.BW (output optical filter)", 3)
+def _stage_plan(stages, f0: float, fs: float, *, phi_w_name, phi_dm_name,
+                bpf_name):
+    """Per-stage constants from the specs (the JAX builder's
+    ``_stage_plan``).  The callbacks register a spectral array and return
+    its buffer name: ``phi_w_name(fiber)``, ``phi_dm_name(dm)`` and
+    ``bpf_name(order, BW)``, called in stage order."""
+    def one(st):
+        if isinstance(st, FiberSpec):  # incl. DBPSpec
+            cc = {"kind": "fiber",
+                  "sgn": -1.0 if isinstance(st, DBPSpec) else 1.0,
+                  "a_km": ssfm.alpha_per_km(st.alpha),
+                  "hs": (None if st.h is None else
+                         ssfm.ssfm_step_schedule(st.length, st.h)),
+                  "method": st.method,
+                  "linear_only": (st.gamma == 0
+                                  or (st.beta_2 == 0 and st.beta_3 == 0))}
+            if isinstance(st, DBPSpec) and st.undo_gain_dB:
+                cc["pre_scale"] = float(idb(-st.undo_gain_dB) ** 0.5)
+            cc["phi_name"] = phi_w_name(st)
+            return cc
+        if isinstance(st, EDFASpec):
             cc = {"kind": "edfa", "sqrtG": float(idb(st.G) ** 0.5)}
             if st.NF is not None:
                 if st.G < 0:
                     raise ValueError(
                         "EDFASpec with ASE (NF set) needs G >= 0 dB")
                 cc["sigma_ase"] = ase_sigma(st.G, st.NF, f0, fs)
-            plan.append(cc)
-        else:
-            raise _not_ported(f"stage {type(st).__name__}", 3)
-    return plan
+            if st.BW is not None:
+                cc["H2_name"] = bpf_name(st.filt_order, st.BW)
+            return cc
+        if isinstance(st, DMSpec):
+            return {"kind": "dm", "phi_name": phi_dm_name(st)}
+        if isinstance(st, BPFSpec):
+            return {"kind": "bpf", "H2_name": bpf_name(st.n, st.BW)}
+        if isinstance(st, RepeatSpec):
+            return {"kind": "repeat", "n": st.n,
+                    "sub": tuple(one(s) for s in st.stages),
+                    "needs_ase": any(
+                        isinstance(s, EDFASpec) and s.NF is not None
+                        for s in st.stages)}
+        raise ValueError(f"unsupported stage {st!r}")
+
+    return [one(s) for s in stages]
+
+
+def _promote_2pol(f: torch.Tensor) -> torch.Tensor:
+    """A 1-pol field as the first row of a (2, n) field."""
+    return torch.stack([f, torch.zeros_like(f)]) if f.ndim == 1 else f
 
 
 def _ook_rx_ingraph(v, slots, bits_f32, sps, nslots, sps_resamp):
@@ -276,18 +358,23 @@ def _ook_rx_ingraph(v, slots, bits_f32, sps, nslots, sps_resamp):
 class LinkProgram(torch.nn.Module):
     """The end-to-end link for ``n_bits`` slots on one device.
 
-    ``forward(bits_f32, seed=0, noise=None) -> (v, slots, n_steps)``: the
-    filtered photodiode voltage (n,), its slot samples (n_bits,), and the
-    split-step count of each fiber stage.  :meth:`run` and :meth:`dsp` are
-    the host conveniences (bits in, results out)."""
+    ``forward(bits_f32, seed=0, noise=None) -> (v, slots, n_steps[, field],
+    rin_ok)``: the filtered (and, with ``adc_bits``, quantised) photodiode
+    voltage (n,), its slot samples (n_bits,), the split-step count of each
+    fiber stage in the order they run, the optical field before the
+    photodiode when built with ``return_field=True``, and a 0-d float32
+    flag that is 0 when a RIN draw crossed -1 and was clamped.
+    :meth:`run` and :meth:`dsp` are the host conveniences (bits in,
+    results out)."""
 
     def __init__(self, spec: LinkSpec, n_bits: int, params: SimParams,
-                 device):
+                 device, return_field: bool = False):
         super().__init__()
         self.spec = spec
         self.n_bits = int(n_bits)
         self.params = params
         self.device = torch.device(device)
+        self.return_field = bool(return_field)
         sps = params.sps
         self.n = n = self.n_bits * sps
         fs = params.fs
@@ -295,18 +382,48 @@ class LinkProgram(torch.nn.Module):
         self._buffer("Hp", _circular_zero_phase_spectrum(
             _pulse_taps(spec, sps), n))
 
+        # --- laser: Wiener phase, RIN, frequency offset ---
+        self.sigma_ph = (float(np.sqrt(2 * pi * spec.lw * (1.0 / fs)))
+                         if spec.lw and spec.lw > 0 else 0.0)
+        self.sigma_rin = (float(np.sqrt(idb(spec.rin) * fs))
+                          if spec.rin is not None else 0.0)
+        # the expected minimum of n N(0, sigma) draws is about
+        # -sigma*sqrt(2 ln n): refuse a RIN whose 1+rin would cross 0
+        if self.sigma_rin * math.sqrt(2 * math.log(max(n, 2))) >= 1.0:
+            raise ValueError(
+                "Noise power is to high, try decrease RIN parameter.")
+        if spec.df:
+            # reduced mod 2*pi in float64 before the float32 cast: at large
+            # n*df the raw phase reaches radians of float32 ulp
+            t_axis = np.linspace(0.0, n / fs, n, endpoint=True)
+            self._buffer("df_phase", np.mod(
+                2 * pi * spec.df * t_axis, 2 * pi).astype(np.float32))
+
+        # --- spectral stage constants, named as the JAX program names them:
+        # one counter across phi_w, phi_dm and H2_bpf, identical arrays
+        # shared ---
         w = 2 * np.pi * np.fft.fftfreq(n) * fs
-        phi_names = {}  # identical dispersion arrays shared across stages
+        names = {}
 
-        def phi_name(st):
-            key = (st.beta_2, st.beta_3)
-            if key not in phi_names:
-                phi_names[key] = f"phi_w_{len(phi_names)}"
-                self._buffer(phi_names[key], ssfm.dispersion_phase(
-                    w, st.beta_2, st.beta_3))
-            return phi_names[key]
+        def register(prefix, key, build):
+            key = (prefix,) + tuple(key)
+            if key not in names:
+                names[key] = f"{prefix}_{len(names)}"
+                self._buffer(names[key], build())
+            return names[key]
 
-        self.plan = _stage_plan(spec.stages, params.f0, fs, phi_name)
+        self.plan = _stage_plan(
+            spec.stages, params.f0, fs,
+            phi_w_name=lambda st: register(
+                "phi_w", (st.beta_2, st.beta_3),
+                lambda: ssfm.dispersion_phase(w, st.beta_2, st.beta_3)),
+            phi_dm_name=lambda st: register(
+                "phi_dm", (st.D,),
+                lambda: ((w * 1e-12) ** 2 * st.D / 2).astype(np.float32)),
+            bpf_name=lambda order, BW: register(
+                "H2_bpf", (order, float(BW)),
+                lambda: filters.bessel_filtfilt_response(
+                    order, float(BW) / 2, fs, n)))
         self._buffer("H2_pd", filters.bessel_filtfilt_response(
             spec.lpf_order, float(spec.pd_BW), fs, n))
 
@@ -358,35 +475,64 @@ class LinkProgram(torch.nn.Module):
 
         # --- DAC: zero-stuff upsample + circular pulse shaping ---
         xu = pulses.upsample_zero_stuff(bits.to(torch.float32), sps)
-        x = torch.fft.ifft(torch.fft.fft(xu) * self.Hp).real  # MZM drive
+        x = torch.fft.ifft(torch.fft.fft(xu) * self.Hp).real  # drive
         x = x * float(f32(spec.Vpp)) + float(f32(spec.offset))
         if spec.coupling.strip().upper() == "AC":
             x = x - x.mean()
 
-        # --- LASER (no linewidth/RIN/offset in this port) + MZM ---
-        g = (x + float(f32(spec.bias))) * float(f32(self.g_scale))
-        h_t = torch.complex(torch.cos(g),
-                            torch.sin(g) * float(f32(self.eta_half)))
-        field = (h_t * float(f32(self.loss_amp))) * float(f32(self.P0_amp))
+        # --- LASER: E = amp * exp(i*phase), or the scalar P0_amp ---
+        P0_amp = float(f32(self.P0_amp))
+        phase = None
+        if self.sigma_ph > 0:
+            phase = wiener_phase(n, self.sigma_ph, gen, draw("phase"))
+        if spec.df:
+            phase = self.df_phase if phase is None else phase + self.df_phase
+        amp = None
+        rin_ok = torch.ones((), dtype=torch.float32, device=dev)
+        if self.sigma_rin > 0:
+            rin = gaussian((n,), self.sigma_rin, gen, draw("rin"))
+            # clamp the power at 0 so a tail draw darkens one sample
+            # instead of NaN-ing the chain, and flag it
+            rin_ok = (rin.min() > -1.0).to(torch.float32)
+            amp = torch.sqrt(torch.clamp(1 + rin, min=0.0)) * P0_amp
+        E = None
+        if phase is not None:
+            E = torch.polar(torch.full_like(phase, P0_amp)
+                            if amp is None else amp, phase)
+        elif amp is not None:
+            E = amp
+
+        # --- modulator ---
+        if spec.modulator.lower() == "pm":
+            # E*exp(j*pi*u/Vpi) (reference devices.py:513-617); bias, loss
+            # and ER do not apply
+            g = x * float(f32(pi / spec.Vpi))
+            h_t = torch.complex(torch.cos(g), torch.sin(g))
+        else:  # MZM (reference devices.py:762-768)
+            g = (x + float(f32(spec.bias))) * float(f32(self.g_scale))
+            h_t = torch.complex(torch.cos(g), torch.sin(g)
+                                * float(f32(self.eta_half)))
+            h_t = h_t * float(f32(self.loss_amp))
+        field = h_t * P0_amp if E is None else E * h_t
 
         # --- channel stages ---
+        i_ase = itertools.count()
+
+        def ase(sigma):  # the next noisy EDFA's (4, n) draw
+            return gaussian((4, n), sigma, gen, draw("ase", next(i_ase)))
+
+        neg_phi = {}  # -phi_w of the DBP stages, built once per call
         n_steps = []
-        i_ase = 0
         for st, cc in zip(spec.stages, self.plan):
-            if cc["kind"] == "fiber":
-                field, steps = self._fiber(field, st, cc)
-                n_steps.append(steps)
+            if cc["kind"] != "repeat":
+                field = self._stage(field, st, cc, ase, neg_phi, n_steps)
                 continue
-            if "sigma_ase" in cc:
-                if field.ndim == 1:  # physical 2-pol ASE
-                    field = torch.stack([field, torch.zeros_like(field)])
-                field = field * float(f32(cc["sqrtG"]))
-                d = gaussian((4, n), cc["sigma_ase"], gen,
-                             draw("ase", i_ase))
-                i_ase += 1
-                field = field + torch.complex(d[:2], d[2:])
-            else:
-                field = field * float(f32(cc["sqrtG"]))
+            if cc["needs_ase"]:
+                field = _promote_2pol(field)
+            for _ in range(cc["n"]):
+                for s_st, s_cc in zip(st.stages, cc["sub"]):
+                    field = self._stage(field, s_st, s_cc, ase, neg_phi,
+                                        n_steps)
 
         # --- PD (reference devices.py:1378-1555) ---
         P = field.real ** 2 + field.imag ** 2
@@ -404,24 +550,70 @@ class LinkProgram(torch.nn.Module):
                    * float(2 * f32(e)) * float(f32(self.params.fs / 2)))
             i = i + gaussian((n,), torch.sqrt(S_N), gen, draw("shot"))
 
-        # --- electrical LPF (zero-phase |H|^2) and slot sampling ---
+        # --- electrical LPF (zero-phase |H|^2), ADC, slot sampling ---
         v = filters.apply_freq_response(i * float(f32(spec.pd_R_load)),
                                         self.H2_pd).contiguous()
-        return v, v[self.instant::sps], tuple(n_steps)
+        if spec.adc_bits is not None:
+            v = _adc_quantize(v, int(spec.adc_bits))
+        out = (v, v[self.instant::sps], tuple(n_steps))
+        if self.return_field:
+            out = out + (field,)
+        return out + (rin_ok,)
 
-    def _fiber(self, f, st: FiberSpec, cc: dict):
-        """One span: a fixed step schedule, or phi_max-adaptive steps."""
+    def _stage(self, f, st, cc, ase, neg_phi, n_steps):
+        """Apply one stage other than a repeat: fiber stages append their
+        step count to ``n_steps``, noisy EDFAs take ``ase(sigma)``."""
+        if cc["kind"] == "fiber":
+            f, steps = self._fiber(f, st, cc, neg_phi)
+            n_steps.append(steps)
+            return f
+        if cc["kind"] == "edfa":
+            if "sigma_ase" in cc:  # physical 2-pol ASE
+                f = _promote_2pol(f) * float(f32(cc["sqrtG"]))
+                d = ase(cc["sigma_ase"])
+                f = f + torch.complex(d[:2], d[2:])
+            else:
+                f = f * float(f32(cc["sqrtG"]))
+            if "H2_name" in cc:
+                f = filters.apply_freq_response(f, getattr(
+                    self, cc["H2_name"]))
+            return f
+        if cc["kind"] == "dm":
+            ph = getattr(self, cc["phi_name"])
+            return filters.apply_freq_response(
+                f, torch.complex(torch.cos(ph), torch.sin(ph)))
+        return filters.apply_freq_response(f, getattr(self, cc["H2_name"]))
+
+    def _fiber(self, f, st: FiberSpec, cc: dict, neg_phi: dict):
+        """One span, forward or (DBPSpec: ``sgn = -1``) the sign-flipped
+        back-propagation; returns ``(field, n_steps)``."""
+        if "pre_scale" in cc:
+            f = f * float(f32(cc["pre_scale"]))
+        sgn = cc["sgn"]
         phi_w = getattr(self, cc["phi_name"])
+        if sgn < 0:
+            if cc["phi_name"] not in neg_phi:
+                neg_phi[cc["phi_name"]] = -phi_w
+            phi_w = neg_phi[cc["phi_name"]]
+        g_nl, a_lin = sgn * st.gamma, sgn * cc["a_km"]
+        if cc["linear_only"] and cc["hs"] is None:
+            # one exact step; nothing to adapt to
+            return ssfm.ssfm_scan_inside(f, phi_w, np.asarray(
+                [st.length], dtype=np.float32), g_nl, a_lin), 1
         if cc["hs"] is not None:
-            return ssfm.ssfm_scan_inside(f, phi_w, cc["hs"], st.gamma,
-                                         cc["a_km"]), len(cc["hs"])
+            scan = (ssfm.ssfm_o4_scan_inside if cc["method"] == "o4"
+                    else ssfm.ssfm_scan_inside)
+            return scan(f, phi_w, cc["hs"], g_nl, a_lin), len(cc["hs"])
+        if cc["method"] in ("o4", "local_error"):
+            auto = (ssfm.ssfm_o4_auto_inside if cc["method"] == "o4"
+                    else ssfm.ssfm_local_error_inside)
+            return auto(f, phi_w, st.length, g_nl, st.tol, st.length / 10.0,
+                        a_lin)
         with np.errstate(divide="ignore"):
-            h0 = min(f32(st.phi_max)
-                     / (abs(f32(st.gamma)) * ssfm.max_power(f)),
+            h0 = min(f32(st.phi_max) / (abs(f32(g_nl)) * ssfm.max_power(f)),
                      f32(st.length))
-        return ssfm.ssfm_while_inside(f, phi_w, st.length, st.gamma,
-                                      st.phi_max, h0, cc["a_km"],
-                                      adaptive=True)
+        return ssfm.ssfm_while_inside(f, phi_w, st.length, g_nl, st.phi_max,
+                                      h0, a_lin, adaptive=True)
 
     # ---- host conveniences ----
     def _bits(self, bits, prbs_order: int):
@@ -438,10 +630,15 @@ class LinkProgram(torch.nn.Module):
             noise: Optional[dict] = None):
         """Run the chain on ``bits`` (default: a PRBS of ``prbs_order``).
         Returns a namespace with ``tx`` (uint8 bits), ``v`` and ``slots``
-        (tensors on the device) and ``n_steps``."""
+        (tensors on the device), ``n_steps``, ``rin_ok`` (False when a RIN
+        draw was clamped; it also warns) and, for a program built with
+        ``return_field=True``, ``field``."""
         tx, bits_f32 = self._bits(bits, prbs_order)
-        v, slots, n_steps = self(bits_f32, seed=seed, noise=noise)
-        return SimpleNamespace(tx=tx, v=v, slots=slots, n_steps=n_steps)
+        out = self(bits_f32, seed=seed, noise=noise)
+        rin_ok = _rin_ok(out[-1])
+        return SimpleNamespace(
+            tx=tx, v=out[0], slots=out[1], n_steps=out[2], rin_ok=rin_ok,
+            **({"field": out[3]} if self.return_field else {}))
 
     @torch.no_grad()
     def dsp(self, bits=None, seed: int = 0, prbs_order: int = 9,
@@ -451,33 +648,45 @@ class LinkProgram(torch.nn.Module):
         receiver stage a reduction on the device and only scalars read back
         (mirrors ``models.ook.DSP`` + ``BER_analizer('counter')``).
         Returns a namespace with ``ber``, ``n_errors``, ``threshold``,
-        ``eye`` (an :class:`Eye` without traces), ``tx`` and ``n_steps``."""
+        ``eye`` (an :class:`Eye` without traces), ``tx``, ``n_steps`` and
+        ``rin_ok``."""
         tx, bits_f32 = self._bits(bits, prbs_order)
-        v, slots, n_steps = self(bits_f32, seed=seed, noise=noise)
-        m, rth, n_err = _ook_rx_ingraph(v, slots, bits_f32, self.params.sps,
-                                        nslots, sps_resamp)
-        out = {k: ((val.item() if val.ndim == 0 else val.cpu().numpy())
+        out = self(bits_f32, seed=seed, noise=noise)
+        m, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
+                                        self.params.sps, nslots, sps_resamp)
+        rin_ok = _rin_ok(out[-1])
+        res = {k: ((val.item() if val.ndim == 0 else val.cpu().numpy())
                    if isinstance(val, torch.Tensor) else val)
                for k, val in m.items()}
         for k in ("threshold", "y_left", "y_right"):
-            if out.get(k) is not None and np.isnan(out[k]):
-                out[k] = None
-        out["dt"] = 1.0 / self.params.fs
+            if res.get(k) is not None and np.isnan(res[k]):
+                res[k] = None
+        res["dt"] = 1.0 / self.params.fs
         n_err = int(n_err.item())
         return SimpleNamespace(ber=n_err / self.n_bits, n_errors=n_err,
-                               threshold=float(rth.item()), eye=Eye(out),
-                               tx=tx, n_steps=n_steps)
+                               threshold=float(rth.item()), eye=Eye(res),
+                               tx=tx, n_steps=out[2], rin_ok=rin_ok)
+
+
+def _rin_ok(flag: torch.Tensor) -> bool:
+    ok = bool(flag.item() != 0.0)
+    if not ok:
+        _warn_rin()
+    return ok
 
 
 def build_link(spec: LinkSpec, n_bits: int, params: SimParams, *,
-               device) -> LinkProgram:
+               device, return_field: bool = False) -> LinkProgram:
     """Build the link described by ``spec`` for ``n_bits`` slots at
     ``params`` on ``device`` (``"cuda"``, ``"cuda:1"``, ``"cpu"``...).  A
-    CUDA device with no card present raises: there is no CPU fallback."""
+    CUDA device with no card present raises: there is no CPU fallback.
+    ``return_field=True`` adds the optical field before the photodiode to
+    the program's outputs."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"build_link(device={str(device)!r}): no CUDA device is "
             "available (torch.cuda.is_available() is False); pass "
             "device='cpu' to run on the CPU")
-    return LinkProgram(spec, n_bits, params, device)
+    return LinkProgram(spec, n_bits, params, device,
+                       return_field=return_field)

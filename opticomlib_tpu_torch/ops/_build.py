@@ -1,12 +1,13 @@
 """Build and load the CUDA C++ kernels (``ops/csrc/*.cu``).
 
-The sources are compiled on first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``; PyTorch's
-headers stay out, so the build takes seconds.  The library lands in
-``build/kernels/`` at the repository root, named by a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
-The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
-kept beside it as ``<name>.log``.
+Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded with ``ctypes``;
+PyTorch's headers stay out, so a build takes seconds, and :func:`build`
+starts one ``nvcc`` per source, all at once.  The libraries land in
+``build/kernels/`` at the repository root, named by the source and a hash of
+its text and the flags, so an edited source is rebuilt and an unchanged one
+is reused.  The compiler's report (``-Xptxas -v``: registers, shared memory,
+spills) is kept beside each library as ``<name>.log``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,18 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P, _I, _LL, _F, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float, ctypes.c_ulonglong)
+#: C entry points of each source: name -> argument types (all return int,
+#: a CUDA error code); every library also exports ``error_string``
+ENTRY_POINTS = {
+    "histogram2d": {
+        "histogram2d_launch": [_P, _P, _LL, _I, _I, _P, _P, _P]},
+    "adc_quantize": {
+        "adc_kernel_launch": [_P, _P, _LL, _F, _F, _I, _I, _ULL, _P],
+        "adc_link_launch": [_P, _P, _LL, _P, _P, _F, _P]},
+}
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -38,44 +51,65 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives (built or not)."""
+    src = _CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libopticomlib_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"libopticomlib_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists;
-    returns its path."""
-    out = library_path()
-    if out.is_file():
+def build(names=None) -> dict:
+    """Compile the sources ``names`` (default: all) that have no library
+    yet, one ``nvcc`` process each, started together; returns
+    ``{name: library path}``.  Raises if any compile fails."""
+    names = (sorted(src.stem for src in _CSRC.glob("*.cu")) if names is None
+             else list(names))
+    out = {name: library_path(name) for name in names}
+    todo = {name: path for name, path in out.items() if not path.is_file()}
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(_CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           + proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a torn .so
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        todo[name].with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}.cu: nvcc exit {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, todo[name])  # atomic: never a torn .so
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points."""
-    lib = ctypes.CDLL(str(build()))
-    lib.histogram2d_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.histogram2d_launch.restype = ctypes.c_int
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed, load it, and declare its C entry
+    points."""
+    lib = ctypes.CDLL(str(build([name])[name]))
+    for fn, argtypes in ENTRY_POINTS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")

@@ -32,13 +32,21 @@ _TINY = float(np.finfo(np.float32).tiny)
 
 
 def linspace(start: torch.Tensor, stop: torch.Tensor, num: int):
-    """``jnp.linspace`` on 0-d float32 tensors, with JAX's arithmetic
-    (``start*(1-s) + stop*s`` with ``s = k/(num-1)``, exact endpoint), so
-    the two packages put grid points on the same floats."""
+    """``jnp.linspace`` on 0-d float32 tensors as XLA on the CPU evaluates
+    it, so the two packages put grid points on the same floats.  XLA turns
+    JAX's ``start*(1 - k/div) + stop*(k/div)`` into
+    ``fma(k, stop*r, start*fma(-k, r, 1))`` with ``r = 1/div`` in float32;
+    each fused multiply-add is emulated in float64 (the product is exact
+    there) and rounded to float32 once.  The endpoint is ``stop`` exactly.
+    Equal to ``jnp.linspace`` on ascending ranges; a descending range can
+    differ at a few points by one ulp."""
     div = num - 1
-    step = torch.from_numpy(
-        np.arange(div, dtype=np.float32) / np.float32(div)).to(start.device)
-    out = start * (1 - step) + stop * step
+    r = np.float32(1) / np.float32(div)
+    k = torch.arange(div, dtype=torch.float64, device=start.device)
+    one_minus = (1.0 - k * float(r)).to(torch.float32)        # fma(-k, r, 1)
+    a = (stop * float(r)).to(torch.float64)
+    b = (start * one_minus).to(torch.float64)
+    out = (k * a + b).to(torch.float32)                       # fma(k, a, b)
     return torch.cat([out, stop.reshape(1)])
 
 
@@ -84,15 +92,21 @@ def _kmeans2_1d(y, iters: int = 32):
     return c0, c1
 
 
+def _lag(m: torch.Tensor, percent: float) -> torch.Tensor:
+    """Window length of the shortest interval: ``m*percent/100`` in float32,
+    as JAX promotes its int32 count with a Python float, then truncated.
+    At ``m = 2^24`` the product's ulp is 128, so float32 matters."""
+    return torch.clamp((m.to(torch.float32) * percent / 100.0).to(
+        torch.int64), min=1)
+
+
 def _shortest_int_masked(y, mask, percent: float = 50.0):
     """Shortest interval holding ``percent`` % of the masked samples.
     Non-members sort to +inf; ties resolve to the floor-mean index."""
     n = y.numel()
     ys = torch.sort(torch.where(mask, y, torch.inf)).values
     m = mask.sum()
-    # float32 like JAX's int32 * python-float promotion, then truncation
-    lag = torch.clamp((m.to(torch.float32) * percent / 100.0).to(torch.int64),
-                      min=1)
+    lag = _lag(m, percent)
     idx = torch.arange(n, device=y.device)
     hi = ys[torch.clamp(idx + lag, 0, n - 1)]
     valid = (idx + lag) < m

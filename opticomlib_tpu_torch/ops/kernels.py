@@ -9,7 +9,13 @@ wrapper       kernel                    replaces (TPU kernel)
 nl_halfstep   Triton, triton_kernels    pallas_kernels._nl_kernel
 cmul          Triton, triton_kernels    pallas_kernels._cmul_kernel
 histogram2d   CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
+adc_quantize  CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
 ============  ========================  ===============================
+
+``adc_quantize`` has two wrappers over one kernel source: kernel mode
+(:func:`adc_quantize`, the Pallas kernel's function) and link mode
+(:func:`adc_quantize_link`, the fused link's ADC); both count as
+``adc_quantize`` launches.
 
 A wrapper given CPU tensors computes its plain version (``*_ref``); given
 CUDA tensors it launches its kernel or raises.  There is no other switch.
@@ -24,13 +30,16 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
-           "histogram2d", "histogram2d_ref", "LAUNCHES", "reset_launches"]
+           "histogram2d", "histogram2d_ref", "adc_quantize",
+           "adc_quantize_ref", "adc_quantize_link", "adc_quantize_link_ref",
+           "LAUNCHES", "reset_launches"]
 
-#: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "histogram2d": 0}
+#: kernel launches per kernel since the last :func:`reset_launches`
+LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "histogram2d": 0, "adc_quantize": 0}
 
 
 def reset_launches() -> None:
@@ -145,8 +154,8 @@ def histogram2d(t_idx: torch.Tensor, y_idx: torch.Tensor, nt: int,
         raise ValueError(f"bad histogram shape ({nt}, {ny})")
     if not _on_cuda(t_idx, y_idx):
         return histogram2d_ref(t_idx, y_idx, nt, ny)
-    from ._build import load_library
-    lib = load_library()
+    from . import _build
+    lib = _build.load_library("histogram2d")
     counts = torch.empty((nt, ny), dtype=torch.int32, device=t_idx.device)
     out = torch.empty((nt, ny), dtype=torch.float32, device=t_idx.device)
     with torch.cuda.device(t_idx.device):
@@ -157,8 +166,108 @@ def histogram2d(t_idx: torch.Tensor, y_idx: torch.Tensor, nt: int,
             ctypes.c_longlong(t_idx.numel()), ctypes.c_int(nt),
             ctypes.c_int(ny), ctypes.c_void_p(counts.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"histogram2d kernel launch failed: CUDA error "
-                           f"{err} ({lib.error_string(err).decode()})")
+    _build.check(lib, err, "histogram2d")
     LAUNCHES["histogram2d"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# ADC quantiser
+# ---------------------------------------------------------------------------
+def _adc_grid(lo: float, hi: float, nbits: int):
+    """``(lo, step, levels)`` as the Pallas kernel takes them: the step is
+    computed in float64 and rounded to float32 once."""
+    levels = 2 ** int(nbits)
+    return (np.float32(lo), np.float32((hi - lo) / (levels - 1)), levels)
+
+
+def adc_quantize_ref(x: torch.Tensor, lo: float, hi: float, nbits: int,
+                     stochastic: bool = False, seed: int = 0) -> torch.Tensor:
+    """Plain version of kernel mode: ``q = (x - lo)/step``, half-up
+    ``floor(q + 0.5)`` (or ``floor(q + u)`` with ``u`` uniform from a
+    ``torch.Generator`` seeded with ``seed``), clip to ``[0, 2^n - 1]``,
+    ``lo + q*step``."""
+    lo32, step, levels = _adc_grid(lo, hi, nbits)
+    # a tensor divisor: torch on CUDA turns division by a Python scalar into
+    # a multiplication by its reciprocal, which rounds differently
+    q = (x - float(lo32)) / torch.tensor(step, device=x.device)
+    if stochastic:
+        g = torch.Generator(device=x.device).manual_seed(int(seed))
+        q = torch.floor(q + torch.rand(x.shape, generator=g, device=x.device,
+                                       dtype=torch.float32))
+    else:
+        q = torch.floor(q + 0.5)
+    return torch.clamp(q, 0.0, float(levels - 1)) * float(step) + float(lo32)
+
+
+def adc_quantize(x: torch.Tensor, lo: float, hi: float, nbits: int,
+                 stochastic: bool = False, seed: int = 0) -> torch.Tensor:
+    """Uniform ``nbits`` quantiser over ``[lo, hi]``, the function of the
+    TPU kernel ``pallas_kernels.adc_quantize``: round half up, or
+    stochastic rounding dithered by Philox4x32-10 keyed by ``seed`` (each
+    sample its own dither; the plain version draws from a
+    ``torch.Generator``, so the two agree in distribution only).  Clips to
+    the range.  ``x``: contiguous float32."""
+    _check(x, "x", torch.float32)
+    if not 1 <= int(nbits) <= 24:
+        raise ValueError(f"nbits must be in [1, 24], got {nbits}")
+    if not _on_cuda(x):
+        return adc_quantize_ref(x, lo, hi, nbits, stochastic, seed)
+    from . import _build
+    lib = _build.load_library("adc_quantize")
+    lo32, step, levels = _adc_grid(lo, hi, nbits)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.adc_kernel_launch(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_longlong(x.numel()), ctypes.c_float(lo32),
+            ctypes.c_float(step), ctypes.c_int(levels),
+            ctypes.c_int(int(stochastic)),
+            ctypes.c_ulonglong(int(seed) % 2**64),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, err, "adc_quantize")
+    LAUNCHES["adc_quantize"] += 1
+    return y
+
+
+def adc_quantize_link_ref(v: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain version of link mode, in ``link._adc_quantize``'s order:
+    ``code = round((v - lo)/(hi - lo)*nq)`` half to even, no clip,
+    ``code/nq*(hi - lo) + lo``."""
+    nq = torch.tensor(np.float32(2 ** int(bits) - 1), device=v.device)
+    # nq as a tensor: torch on CUDA turns division by a Python scalar into a
+    # multiplication by its reciprocal, which rounds differently
+    code = torch.round((v - lo) / (hi - lo) * nq)
+    return code / nq * (hi - lo) + lo
+
+
+def adc_quantize_link(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    """The fused link's ADC: ``bits``-bit uniform quantisation of ``v`` on
+    the range ``[lo, hi]`` given as 0-d float32 tensors on ``v``'s device
+    (read by the kernel from device memory, never brought to the host).
+    Rounds half to even and does not clip: samples outside the range
+    extrapolate.  Bit-equal to :func:`adc_quantize_link_ref`."""
+    _check(v, "v", torch.float32)
+    for name, t in (("lo", lo), ("hi", hi)):
+        _check(t, name, torch.float32)
+        if t.ndim != 0:
+            raise ValueError(f"{name} must be a 0-d tensor")
+    if not 1 <= int(bits) <= 16:
+        raise ValueError(f"bits must be in [1, 16], got {bits}")
+    if not _on_cuda(v, lo, hi):
+        return adc_quantize_link_ref(v, lo, hi, bits)
+    from . import _build
+    lib = _build.load_library("adc_quantize")
+    y = torch.empty_like(v)
+    with torch.cuda.device(v.device):
+        err = lib.adc_link_launch(
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_longlong(v.numel()), ctypes.c_void_p(lo.data_ptr()),
+            ctypes.c_void_p(hi.data_ptr()),
+            ctypes.c_float(np.float32(2 ** int(bits) - 1)),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, err, "adc_quantize")
+    LAUNCHES["adc_quantize"] += 1
+    return y

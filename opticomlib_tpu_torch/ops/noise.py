@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["ase_power", "ase_sigma", "gaussian"]
+__all__ = ["ase_power", "ase_sigma", "gaussian", "wiener_phase"]
 
 
 def gaussian(shape, sigma, generator: torch.Generator,
@@ -30,6 +30,17 @@ def gaussian(shape, sigma, generator: torch.Generator,
     if not isinstance(sigma, torch.Tensor):
         sigma = float(np.float32(sigma))
     return draw * sigma
+
+
+def wiener_phase(n: int, sigma_step, generator: torch.Generator,
+                 draw: torch.Tensor = None) -> torch.Tensor:
+    """Wiener (random-walk) laser phase: the float32 cumulative sum of
+    ``n`` draws of ``N(0, sigma_step^2)`` (port of
+    ``opticomlib_tpu.ops.noise.wiener_phase_inside``; reference
+    devices.py:485-490).  ``draw``: unit normals to use instead of the
+    generator's.  torch and XLA sum in different orders, so the walk agrees
+    with the JAX one to float32 round-off, not bit for bit."""
+    return torch.cumsum(gaussian((n,), sigma_step, generator, draw), dim=0)
 
 
 def ase_power(G_dB: float, NF_dB: float, f0: float, fs: float) -> float:

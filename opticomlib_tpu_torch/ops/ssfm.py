@@ -1,19 +1,27 @@
-"""Split-step Fourier NLSE propagation (the reference scheme).
+"""Split-step Fourier NLSE propagation.
 
-Port of ``opticomlib_tpu.ops.ssfm``: symmetric NL-L-NL steps with the
-nonlinear operator frozen at the step start, and the step size adapted to a
-maximum nonlinear phase rotation (Sinkin et al. 2003; reference
-devices.py:1038-1206).  One step is
+Port of ``opticomlib_tpu.ops.ssfm``.  The reference scheme: symmetric
+NL-L-NL steps with the nonlinear operator frozen at the step start, and the
+step size adapted to a maximum nonlinear phase rotation (Sinkin et al.
+2003; reference devices.py:1038-1206).  One step is
 
     B, H = nl_halfstep(A, gamma*h/2)          # Triton kernel
     A    = ifft(cmul(fft(B), E(h))) ; A = cmul(A, H)   # cuFFT + Triton
 
 with ``E(h) = exp(-alpha*h/2) * exp(i*phi(w)*h)``.
 
-Step control runs in float32 on the host, as the JAX loop runs it in
+The higher-order schemes build on the true Strang step, whose second kick
+reads the field after the linear substep: the fixed-step 4th-order Yoshida
+composition (``ssfm_o4_scan_inside``) and the two step-doubling local-error
+schemes (``ssfm_o4_auto_inside``, ``ssfm_local_error_inside``).  Each kick
+is one ``nl_halfstep`` launch and each spectral multiply one ``cmul``; the
+two kicks of a substep stay two rotations, as in the JAX package.
+
+Step control runs in float32 on the host, as the JAX loops run it in
 float32 on the device: ``z``, ``h`` and the next ``h`` are ``np.float32``
-so the step count matches the JAX package's.  The adaptive loop reads
-``max|A|^2`` back once per step (it decides ``h`` and termination).
+so the step counts match the JAX package's.  The adaptive loops read back
+once per step (``max|A|^2``, or the two error norms of a step-doubling
+attempt): the read-back decides ``h`` and termination.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from . import kernels
 
 __all__ = ["dispersion_phase", "alpha_per_km", "adaptive_h0",
            "ssfm_step_schedule", "max_power", "ssfm_while_inside",
-           "ssfm_scan_inside"]
+           "ssfm_scan_inside", "ssfm_o4_scan_inside", "ssfm_o4_auto_inside",
+           "ssfm_local_error_inside"]
 
 _LOG10E_X10 = 4.342944819032518  # 10*log10(e): dB/km -> 1/km divisor
 _MAX_STEPS = 400_000  # runaway backstop, as in the JAX loop
@@ -132,3 +141,150 @@ def ssfm_scan_inside(A: torch.Tensor, phi_w: torch.Tensor, hs, gamma,
         E = E0 if h == hs[0] else None
         A = _nl_l_nl_step(A, phi_w, alpha, h, gamma, E=E)
     return A
+
+
+# ----------------------------------------------------------------------
+# higher-order schemes (ops/ssfm.py:319-623 of the JAX package)
+# ----------------------------------------------------------------------
+# Yoshida (1990) triple jump: S4(h) = S2(w1 h) S2(w0 h) S2(w1 h), with
+# w1 = 1/(2 - 2^(1/3)) and the negative midstep w0 = 1 - 2 w1.
+_W1 = 1.0 / (2.0 - 2.0 ** (1.0 / 3.0))
+_W0 = 1.0 - 2.0 * _W1
+
+
+def _strang_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
+                 h: np.float32, gamma: np.float32,
+                 E: torch.Tensor = None) -> torch.Tensor:
+    """True Strang step: kick, linear substep, kick at the magnitudes after
+    the linear substep (genuinely 2nd order), so neither kick reuses the
+    other's rotation.  Pass ``E`` when it is precomputed for this ``h``."""
+    coeff = gamma * (h / f32(2))
+    A = kernels.nl_halfstep(A, coeff)[0]
+    if E is None:
+        E = _lin_factor(phi_w, alpha, h)
+    A = torch.fft.ifft(kernels.cmul(torch.fft.fft(A, dim=-1), E), dim=-1)
+    return kernels.nl_halfstep(A, coeff)[0]
+
+
+def _o4_step(A, phi_w, alpha, h, gamma, E1=None, E0=None):
+    """One 4th-order Yoshida step ``S4(h)``; ``E1``/``E0``: the linear
+    factors of the ``w1 h`` and ``w0 h`` substeps when precomputed."""
+    h1, h0 = h * f32(_W1), h * f32(_W0)
+    A = _strang_step(A, phi_w, alpha, h1, gamma, E1)
+    A = _strang_step(A, phi_w, alpha, h0, gamma, E0)
+    return _strang_step(A, phi_w, alpha, h1, gamma, E1)
+
+
+def ssfm_o4_scan_inside(A: torch.Tensor, phi_w: torch.Tensor, hs, gamma,
+                        alpha) -> torch.Tensor:
+    """Fixed-schedule 4th-order propagation over the float32 step sizes
+    ``hs`` (3 Strang substeps, 3 FFT pairs and 6 kicks a step).  The two
+    linear factors of the leading step size are built once."""
+    alpha, gamma = f32(alpha), f32(gamma)
+    hs = np.asarray(hs, dtype=np.float32)
+    E1_0 = _lin_factor(phi_w, alpha, hs[0] * f32(_W1))
+    E0_0 = _lin_factor(phi_w, alpha, hs[0] * f32(_W0))
+    for h in hs:
+        if h == hs[0]:
+            A = _o4_step(A, phi_w, alpha, h, gamma, E1_0, E0_0)
+        else:
+            A = _o4_step(A, phi_w, alpha, h, gamma)
+    return A
+
+
+def _sq_norm(A: torch.Tensor) -> torch.Tensor:
+    return (A.real**2 + A.imag**2).sum()
+
+
+def _step_doubling_controller(A, length, h0, tol, attempt, rich_num,
+                              rich_den, grow):
+    """Step-doubling local-error control shared by the self-tuning schemes
+    (port of ``ops/ssfm.py:_step_doubling_controller``, saturation guard
+    included).  ``attempt(A, h) -> (u_c, u_f)``: one coarse step and two
+    fine half-steps; ``delta = ||u_f - u_c|| / ||u_f||`` decides:
+
+      delta > 2 tol        -> discard, halve h
+      tol < delta <= 2 tol -> accept (u_f, u_c Richardson-combined), h /= grow
+      delta < tol/2        -> accept, h *= grow
+
+    After ``max_rejects`` consecutive rejections that do not improve delta
+    by 30 %, the estimate is declared saturated (tol below the float32
+    floor): h is restored to where the plateau began and every later step
+    is accepted at that size.  Each attempt reads the two norms back (one
+    sync).  Returns ``(A, n_attempted_steps)``."""
+    length, tol, grow = f32(length), f32(tol), f32(grow)
+    rich_num, rich_den = float(f32(rich_num)), float(f32(rich_den))
+    h_floor = length * f32(1.5e-7)
+    max_rejects = 8
+    restore = f32(2.0 ** max_rejects)
+    improve_factor = f32(0.7)
+    z, h, steps = f32(0.0), f32(h0), 0
+    rejects, saturated, delta_prev = 0, False, f32(np.inf)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        while z < length and steps < _MAX_STEPS:
+            h = min(h, length - z)
+            u_c, u_f = attempt(A, h)
+            err2, ref2 = torch.stack([_sq_norm(u_f - u_c),
+                                      _sq_norm(u_f)]).tolist()
+            delta = np.sqrt(f32(err2)) / max(np.sqrt(f32(ref2)), f32(1e-30))
+            trip = rejects >= max_rejects and not saturated
+            accept = bool(delta <= f32(2) * tol or h <= h_floor
+                          or saturated or trip)
+            if accept:
+                A = (u_f * rich_num - u_c) / rich_den
+                z = z + h
+            improving = delta < delta_prev * improve_factor
+            rejects = 0 if accept else (1 if improving else rejects + 1)
+            delta_prev = f32(np.inf) if accept else delta
+            saturated = saturated or trip
+            if not accept:
+                h_next = h / f32(2)
+            elif trip:
+                h_next = h * restore            # undo the plateau halvings
+            elif saturated:
+                h_next = h                      # fixed-step mode
+            elif delta > tol:
+                h_next = h / grow
+            elif delta < tol / f32(2):
+                h_next = h * grow
+            else:
+                h_next = h
+            h = f32(min(max(h_next, h_floor), length))
+            steps += 1
+    return A, steps
+
+
+def ssfm_o4_auto_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
+                        tol, h0, alpha):
+    """Self-tuning 4th-order propagation: Yoshida S4 steps under
+    step-doubling control (Richardson ``(16 u_f - u_c)/15``, growth
+    ``2^(1/5)``; 9 FFT pairs an attempt).  Returns ``(A, n_attempts)``."""
+    alpha, gamma = f32(alpha), f32(gamma)
+
+    def attempt(A, h):
+        u_c = _o4_step(A, phi_w, alpha, h, gamma)
+        half = h / f32(2)
+        u_f = _o4_step(_o4_step(A, phi_w, alpha, half, gamma), phi_w, alpha,
+                       half, gamma)
+        return u_c, u_f
+
+    return _step_doubling_controller(A, length, h0, tol, attempt, 16.0, 15.0,
+                                     2.0 ** (1.0 / 5.0))
+
+
+def ssfm_local_error_inside(A: torch.Tensor, phi_w: torch.Tensor, length,
+                            gamma, tol, h0, alpha):
+    """Sinkin et al. (2003) local-error method: Strang steps under
+    step-doubling control (Richardson ``(4 u_f - u_c)/3``, growth
+    ``2^(1/3)``; 3 FFT pairs an attempt).  Returns ``(A, n_attempts)``."""
+    alpha, gamma = f32(alpha), f32(gamma)
+
+    def attempt(A, h):
+        u_c = _strang_step(A, phi_w, alpha, h, gamma)
+        half = h / f32(2)
+        u_f = _strang_step(_strang_step(A, phi_w, alpha, half, gamma), phi_w,
+                           alpha, half, gamma)
+        return u_c, u_f
+
+    return _step_doubling_controller(A, length, h0, tol, attempt, 4.0, 3.0,
+                                     2.0 ** (1.0 / 3.0))

@@ -100,3 +100,46 @@ def test_link_on_card_matches_cpu(cuda_device):
         dc.eye.mu1 - dc.eye.mu0) / 999 * (1 + 1e-3)
     assert kernels.LAUNCHES["histogram2d"] >= 1
     assert kernels.LAUNCHES["nl_halfstep"] >= rg.n_steps[0]
+
+
+@pytest.mark.parametrize("n", [2**20, 2**20 + 3, 5])
+def test_adc_link_mode_bit_equal_to_plain(cuda_device, n):
+    """Link mode with lo/hi as device scalars: the same output bits as the
+    plain version (no FMA contraction in the kernel), outliers included."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    v = 0.1 * torch.randn(n, generator=g, device=cuda_device) + 0.12
+    lo, hi = v.quantile(0.001) if n > 16 else v.min(), v.max() * 0.9
+    for bits in (1, 6, 8, 16):
+        got = kernels.adc_quantize_link(v, lo.contiguous(), hi.contiguous(),
+                                        bits)
+        assert torch.equal(got, kernels.adc_quantize_link_ref(v, lo, hi, bits))
+    assert kernels.LAUNCHES["adc_quantize"] == 4
+
+
+def test_adc_kernel_mode_matches_plain_and_rounds_half_up(cuda_device):
+    x = torch.arange(15, dtype=torch.float32, device=cuda_device) + 0.5
+    got = kernels.adc_quantize(x, 0.0, 15.0, 4)
+    assert torch.equal(got, kernels.adc_quantize_ref(x, 0.0, 15.0, 4))
+    assert torch.equal(got.cpu(), torch.arange(1, 16, dtype=torch.float32))
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(2**20 + 1, generator=g, device=cuda_device)
+    assert torch.equal(kernels.adc_quantize(x, -2.0, 2.0, 8),
+                       kernels.adc_quantize_ref(x, -2.0, 2.0, 8))
+    # a view that is not 16-byte aligned takes the scalar loop
+    xs = x[1:]
+    assert torch.equal(kernels.adc_quantize(xs, -2.0, 2.0, 8),
+                       kernels.adc_quantize_ref(xs, -2.0, 2.0, 8))
+
+
+def test_adc_stochastic_statistics(cuda_device):
+    x = torch.full((2**20,), 0.30, device=cuda_device)
+    y = kernels.adc_quantize(x, 0.0, 1.0, 2, stochastic=True, seed=3)
+    step = 1.0 / 3.0
+    q = (y / step).cpu().numpy()
+    np.testing.assert_allclose(q, np.round(q), atol=1e-4)
+    # 0.3 is 0.9 of a step: the level above w.p. 0.9, below w.p. 0.1
+    assert abs(float(y.double().mean()) - 0.30) < 3 * step * np.sqrt(
+        0.9 * 0.1 / x.numel())
+    assert torch.equal(y, kernels.adc_quantize(x, 0.0, 1.0, 2,
+                                               stochastic=True, seed=3))
+    assert not torch.equal(y[:65536], y[65536:131072])

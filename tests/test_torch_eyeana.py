@@ -48,18 +48,40 @@ def test_eye_metrics_match_jax(sps_resamp):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_linspace_matches_jnp():
-    """Endpoints exact, inner points within two ulps of the larger
-    endpoint: XLA on the CPU rewrites ``iota / div`` as ``iota * (1/div)``
-    (ROADMAP Queue 3)."""
+@pytest.mark.parametrize("a,b,num", [(0.0568, 1.0098, 1000),
+                                      (0.05682, 1.0098, 1000),
+                                      (0.0174689, 0.2405096, 1000),
+                                      (-0.3, 0.7, 1000)])
+def test_linspace_matches_jnp(a, b, num):
+    """Ascending ranges (the receiver's scan from mu0 to mu1): every grid
+    point equal to jnp.linspace's, which XLA on the CPU evaluates with
+    contracted FMAs."""
     import jax.numpy as jnp
-    for a, b, num in [(0.0568, 1.0098, 1000), (0.3, -0.2, 500)]:
-        a32, b32 = np.float32(a), np.float32(b)
-        got = teye.linspace(torch.tensor(a32), torch.tensor(b32), num)
-        want = np.asarray(jnp.linspace(a32, b32, num))
-        assert got[0].item() == want[0] and got[-1].item() == want[-1]
-        ulp = np.spacing(max(abs(a32), abs(b32)))
-        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2 * ulp)
+    a32, b32 = np.float32(a), np.float32(b)
+    got = teye.linspace(torch.tensor(a32), torch.tensor(b32), num)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jnp.linspace(a32, b32, num)))
+
+
+def test_linspace_descending_within_one_ulp():
+    import jax.numpy as jnp
+    a32, b32 = np.float32(0.3), np.float32(-0.2)
+    got = teye.linspace(torch.tensor(a32), torch.tensor(b32), 500)
+    want = np.asarray(jnp.linspace(a32, b32, 500))
+    assert got[0].item() == want[0] and got[-1].item() == want[-1]
+    ulp = np.spacing(max(abs(a32), abs(b32)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ulp)
+
+
+@pytest.mark.parametrize("m", [2**24, 2**24 - 1, 4099, 12345])
+def test_shortest_int_lag_matches_jax(m):
+    """The window length of the 99.99 % interval (the ADC's range) at the
+    slice's 2^24 samples, where m*99.99 in float32 has an ulp of 128."""
+    import jax
+    import jax.numpy as jnp
+    lag_j = jax.jit(lambda m: jnp.maximum(
+        (m * 99.99 / 100.0).astype(jnp.int32), 1))(jnp.int32(m))
+    assert int(teye._lag(torch.tensor(m), 99.99)) == int(lag_j)
 
 
 def test_quantiles_match_jnp():

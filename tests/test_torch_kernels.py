@@ -87,8 +87,17 @@ def test_wrappers_take_plain_path_on_cpu():
     y = torch.arange(300, dtype=torch.int32) % 7 - 1
     assert torch.equal(kernels.histogram2d(t, y, 1, 5),
                        kernels.histogram2d_ref(t, y, 1, 5))
+    x = A.real.contiguous()
+    assert torch.equal(kernels.adc_quantize(x, -1.0, 1.0, 4),
+                       kernels.adc_quantize_ref(x, -1.0, 1.0, 4))
+    assert torch.equal(
+        kernels.adc_quantize(x, -1.0, 1.0, 4, stochastic=True, seed=2),
+        kernels.adc_quantize_ref(x, -1.0, 1.0, 4, stochastic=True, seed=2))
+    lo, hi = x.min(), x.max()
+    assert torch.equal(kernels.adc_quantize_link(x, lo, hi, 6),
+                       kernels.adc_quantize_link_ref(x, lo, hi, 6))
     assert kernels.LAUNCHES == {"nl_halfstep": 0, "cmul": 0,
-                                "histogram2d": 0}
+                                "histogram2d": 0, "adc_quantize": 0}
     assert "triton" not in sys.modules
 
 
@@ -102,6 +111,16 @@ def test_wrappers_take_plain_path_on_cpu():
                                 torch.zeros(4, dtype=torch.int64), 1, 4),
     lambda: kernels.histogram2d(torch.zeros(4, dtype=torch.int32),
                                 torch.zeros(5, dtype=torch.int32), 1, 4),
+    lambda: kernels.adc_quantize(torch.zeros(4, dtype=torch.float64),
+                                 0.0, 1.0, 4),                     # dtype
+    lambda: kernels.adc_quantize(torch.zeros(4), 0.0, 1.0, 0),     # nbits
+    lambda: kernels.adc_quantize_link(torch.zeros(4), torch.zeros(1),
+                                      torch.ones(()), 8),          # 0-d
+    lambda: kernels.adc_quantize_link(torch.zeros(4), torch.zeros(()),
+                                      torch.ones((), dtype=torch.float64),
+                                      8),                          # dtype
+    lambda: kernels.adc_quantize_link(torch.zeros(4), torch.zeros(()),
+                                      torch.ones(()), 17),         # bits
 ])
 def test_wrappers_reject_bad_input(call):
     with pytest.raises((TypeError, ValueError)):

@@ -14,13 +14,11 @@ noisy chain agrees (rel L2 <= 1e-4 on ``v``) and ``dsp`` gives the same
 error count, a threshold within one step of its 1000-point scan, and eye
 scalars within rel 1e-4.
 """
-import dataclasses
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import jax_draws, rel_l2
 
 from opticomlib_tpu import link as jlink
 from opticomlib_tpu.params import SimParams as JParams
@@ -66,28 +64,6 @@ def _build(name, noisy):
     return jprog, tprog, bits
 
 
-def _jax_draws(seed, n, n_noisy_edfa):
-    """Unit-normal draws of the JAX program's key stream (link.py fwd):
-    k_laser first, one key per noisy EDFA ((4, n) draw), then k_pd split
-    into the thermal and shot keys."""
-    stream = jax.random.PRNGKey(np.uint32(seed))
-    stream, _k_laser = jax.random.split(stream)
-    ase = []
-    for _ in range(n_noisy_edfa):
-        stream, k = jax.random.split(stream)
-        ase.append(np.asarray(jax.random.normal(k, (4, n), jnp.float32)))
-    stream, k_pd = jax.random.split(stream)
-    k_T, k_N = jax.random.split(k_pd)
-    return {"ase": ase,
-            "thermal": np.asarray(jax.random.normal(k_T, (n,), jnp.float32)),
-            "shot": np.asarray(jax.random.normal(k_N, (n,), jnp.float32))}
-
-
-def _rel_l2(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def noisy(request):
     return (request.param,) + _build(request.param, noisy=True)
@@ -118,24 +94,24 @@ def test_noiseless_chain_matches_jax(noiseless):
     v_j, slots_j = jprog.jitted(jnp.asarray(bits.astype(np.float32)),
                                 jnp.uint32(SEED))[:2]
     res = tprog.run(bits=bits, seed=SEED)
-    assert _rel_l2(res.v.numpy(), v_j) <= 1e-4
-    assert _rel_l2(res.slots.numpy(), slots_j) <= 1e-4
+    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
+    assert rel_l2(res.slots.numpy(), slots_j) <= 1e-4
     assert len(res.n_steps) == 1 and res.n_steps[0] > 0
 
 
 def test_noisy_chain_matches_jax_on_jax_draws(noisy):
     _, jprog, tprog, bits = noisy
-    draws = _jax_draws(SEED, tprog.n, n_noisy_edfa=1)
+    draws = jax_draws(SEED, tprog.n, jprog.spec)
     v_j = jprog.jitted(jnp.asarray(bits.astype(np.float32)),
                        jnp.uint32(SEED))[0]
     res = tprog.run(bits=bits, noise=draws)
-    assert _rel_l2(res.v.numpy(), v_j) <= 1e-4
+    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
 
 
 def test_noisy_dsp_matches_jax_on_jax_draws(noisy):
     _, jprog, tprog, bits = noisy
     dj = jprog.dsp(bits=bits, seed=SEED)
-    dt = tprog.dsp(bits=bits, noise=_jax_draws(SEED, tprog.n, 1))
+    dt = tprog.dsp(bits=bits, noise=jax_draws(SEED, tprog.n, jprog.spec))
     assert dt.n_errors == dj.n_errors
     scan_step = abs(dj.eye.mu1 - dj.eye.mu0) / 999
     assert abs(dt.threshold - dj.threshold) <= scan_step * (1 + 1e-3)
@@ -145,21 +121,45 @@ def test_noisy_dsp_matches_jax_on_jax_draws(noisy):
     assert dt.eye.i == dj.eye.i
 
 
-def test_unported_options_raise():
-    fib = tlink.FiberSpec(length=1.0, gamma=1.3, beta_2=-21.0)
-    for kw in (dict(lw=1e5), dict(rin=-150.0), dict(df=1e9),
-               dict(modulator="pm"), dict(adc_bits=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlink.LinkSpec(stages=(fib,), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlink.LinkSpec(stages=(jlink.DMSpec(D=1.0),))
-    params = TParams.create(sps=8, R=R, _warn=False)
-    for st in (dataclasses.replace(fib, method="o4", h=0.5),
-               dataclasses.replace(fib, method="local_error"),
-               tlink.EDFASpec(G=10, NF=5, BW=50e9)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlink.build_link(tlink.LinkSpec(stages=(st,)), 64, params,
-                             device="cpu")
+@pytest.mark.parametrize("make,match", [
+    (lambda m: m.LinkSpec(pulse_shape="gausian"), "pulse_shape"),
+    (lambda m: m.LinkSpec(coupling="CA"), "coupling"),
+    (lambda m: m.LinkSpec(modulator="eam"), "modulator"),
+    (lambda m: m.LinkSpec(stages=("fiber",)), "unsupported stage"),
+    (lambda m: m.LinkSpec(adc_bits=40), "adc_bits"),
+    (lambda m: m.LinkSpec(Vpi=0.0), "Vpi"),
+    (lambda m: m.FiberSpec(length=-1.0), "length"),
+    (lambda m: m.FiberSpec(length=10, h=1.0, method="rk4"), "method"),
+    (lambda m: m.FiberSpec(length=10, method="local_error", h=1.0),
+     "adaptive"),
+    (lambda m: m.FiberSpec(length=10, tol=0.0), "tol"),
+    (lambda m: m.RepeatSpec(2, (m.RepeatSpec(2, (m.FiberSpec(length=1.0),)),
+                                )), "nest"),
+    (lambda m: m.RepeatSpec(0, (m.FiberSpec(length=1.0),)), "RepeatSpec.n"),
+    (lambda m: m.RepeatSpec(2, ()), "non-empty"),
+    (lambda m: m.BPFSpec(BW=0.0), "BW"),
+    (lambda m: m.EDFASpec(G=10, BW=-1.0), "BW"),
+])
+def test_validation_matches_jax(make, match):
+    """Every option the JAX package accepts is ported, so the port refuses
+    exactly what JAX refuses, with the same message (tests/
+    test_link_stages.py:170-186 and the spec validators)."""
+    for mod in (jlink, tlink):
+        with pytest.raises(ValueError, match=match):
+            make(mod)
+
+
+@pytest.mark.parametrize("kw,stages,match", [
+    ({}, lambda m: (m.EDFASpec(G=-3.0, NF=5.0),), "G >= 0"),
+    (dict(rin=-90.0), lambda m: (), "RIN"),
+])
+def test_build_time_validation_matches_jax(kw, stages, match):
+    for mod, P, dev in ((jlink, JParams, {}), (tlink, TParams,
+                                             {"device": "cpu"})):
+        spec = mod.LinkSpec(stages=stages(mod), **kw)
+        with pytest.raises(ValueError, match=match):
+            mod.build_link(spec, 64, params=P.create(sps=8, R=R,
+                                                     _warn=False), **dev)
 
 
 def test_seeded_noise_is_reproducible():
@@ -206,5 +206,5 @@ def test_transmitter_options_match_jax(tx):
     v_j, slots_j = progs[0].jitted(jnp.asarray(bits.astype(np.float32)),
                                    jnp.uint32(0))[:2]
     res = progs[1].run(bits=bits)
-    assert _rel_l2(res.v.numpy(), v_j) <= 1e-4
-    assert _rel_l2(res.slots.numpy(), slots_j) <= 1e-4
+    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
+    assert rel_l2(res.slots.numpy(), slots_j) <= 1e-4
