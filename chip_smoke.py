@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through ``build_link`` ->
-``LinkProgram.dsp`` at full size, 2^24 samples each:
+Drives the port's three main paths at full size, 2^24 samples each: two
+through ``build_link`` -> ``LinkProgram.dsp``,
 
 * BASELINE config 2 (OOK, PRBS15, 16 dBm, gaussian pulses, MZM, 50 km
   phi_max-adaptive split-step fiber, EDFA with ASE, PIN with thermal and
@@ -13,7 +13,13 @@ Drives the port's two main paths through ``build_link`` ->
 * BASELINE config 4, the long-haul link: laser linewidth 100 kHz and RIN
   -150 dB/Hz, 20 x (80 km fixed-step 4th-order fiber + 16 dB EDFA with
   ASE), then 20 spans of per-span DBP, PIN, LPF, an 8-bit ADC on the
-  99.99 % range, and the same receiver; 2^20 bits x 16 samples per bit.
+  99.99 % range, and the same receiver; 2^20 bits x 16 samples per bit;
+
+and one through the staged drop-in API, the README quickstart:
+``gv(sps=64, R=10e9, Vpi=5, N=2**18, device="cuda")``, ``PRBS`` (order 15)
+-> ``DAC`` (gaussian, pulse shaped by the ``fir_filter`` kernel) ->
+``MZM(LASER(P0=5))`` -> ``FIBER`` (50 km, phi_max-adaptive) -> ``PD`` (all
+noise) -> ``ook.DSP`` -> ``ook.BER_analizer``; 2^18 bits x 64.
 
 It checks them in phases, one line each; any failure exits non-zero:
 
@@ -34,10 +40,21 @@ It checks them in phases, one line each; any failure exits non-zero:
 6. config 4 at full size runs once through the kernels and is held to the
    JAX package's pinned result;
 7. the same 40 spans without noise undo themselves: the field after them
-   is the launch field to relative L2 0.01.
+   is the launch field to relative L2 0.01;
+8. the ``fir_filter`` kernel agrees with its plain version (``conv1d``) to
+   1e-5 of max|y| at the DAC's shapes (2^24 samples, 783 gaussian and 64
+   nrz taps), an odd length and more taps than its 2048-output block, and
+   is timed beside the plain version and the FFT convolution the DAC takes
+   above the kernel's limit;
+9. the staged chain at 2^20 samples runs on the card and on the CPU on the
+   same ``np.random`` draws, and the two agree;
+10. the staged chain at full size runs through the kernels under a fixed
+    ``np.random.seed`` and is held to the JAX package's pinned result on
+    the same seed, then once with ``gv(seed=...)`` on-device noise, held
+    statistically.
 
-The line before the last is a JSON object with each kernel's launches (in
-config 4's run, which goes through all four; per path under
+The line before the last is a JSON object with each kernel's launches
+(summed over the counted runs of the three paths; per path under
 ``launches_by_path``), error and times; the last line is
 ``{"ok": true, "device": {...}}``.  Compiled kernels go to ``build/`` in
 this checkout.
@@ -88,10 +105,32 @@ PINNED = dict(n_steps=58, ber=0.0, threshold=0.72076, mu0=0.05682,
 PINNED4 = dict(ber=0.0, threshold=0.128878, mu0=0.0174689, mu1=0.2405096,
                s0=0.0121167, s1=0.0121554, round_trip=1.140e-4)
 
+# The JAX package's result for the staged README chain (phase 10), taken on
+# the CPU with the same seed:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np; \
+#     from opticomlib_tpu import gv; from opticomlib_tpu.devices import *; \
+#     from opticomlib_tpu.models import ook; \
+#     gv(sps=64, R=10e9, wavelength=1550e-9, Vpi=5, N=2**18); \
+#     np.random.seed(1); tx = PRBS(order=15, len=gv.N); \
+#     v = DAC(tx, Vpp=5, offset=-2.5, pulse_shape='gaussian'); \
+#     mod = MZM(LASER(P0=5), v, bias=-2.5, Vpi=5, loss_dB=3, ER_dB=26); \
+#     fib = FIBER(mod, length=50, alpha=0.2, beta_2=-20, gamma=2); \
+#     pdo = PD(fib, BW=7.5e9, r=1, include_noise='all'); \
+#     rx, e, rth = ook.DSP(pdo); \
+#     print(ook.BER_analizer('counter', Tx=tx, Rx=rx), rth, \
+#           e.mu0, e.mu1, e.s0, e.s1)"
+# (ssfm._ssfm_loop, which that FIBER runs, takes 9 steps.)  The JAX DSP
+# measures its eye with the host NumPy engine, the port with the twin of the
+# device engine (tests/test_eye_device.py holds the two to 2e-4).
+PINNED_STAGED = dict(seed=1, n_steps=9, ber=0.0, threshold=0.0059514299287740475,
+                     mu0=5.757647879658798e-4, mu1=7.698164623068478e-3,
+                     s0=4.884072839667364e-4, s1=1.5737999351354606e-4)
+
 N_BITS, SPS, R = 2**18, 64, 10e9
 N_BITS4, SPS4 = 2**20, 16
 SMALL_BITS = 2**14   # phase 3: 2^20 samples
 SMALL_BITS4 = 2**16  # phase 5: 2^20 samples
+SMALL_BITS_STAGED = 2**14  # phase 9: 2^20 samples
 TOL = dict(rtol=2e-5, atol=2e-5)
 REPLACES = {
     "nl_halfstep": ("triton", "opticomlib_tpu_torch/ops/triton_kernels.py",
@@ -102,6 +141,8 @@ REPLACES = {
                     "opticomlib_tpu/ops/pallas_kernels.py:342"),
     "adc_quantize": ("cuda", "opticomlib_tpu_torch/ops/csrc/adc_quantize.cu",
                      "opticomlib_tpu/ops/pallas_kernels.py:289"),
+    "fir_filter": ("cuda", "opticomlib_tpu_torch/ops/csrc/fir_filter.cu",
+                   "opticomlib_tpu/ops/pallas_kernels.py:168"),
 }
 
 
@@ -196,6 +237,46 @@ def timed_dsp(torch, kernels, prog, bits, seed=3, steady=3):
     return d, launches, t_first, walls, peak
 
 
+def staged_chain(torch, n_bits, device, np_seed=None, gv_seed=None,
+                 timed=False):
+    """The README quickstart through the staged API on ``device``, legacy
+    noise under ``np.random.seed(np_seed)`` or on-device noise from
+    ``gv(seed=gv_seed)``.  With ``timed``, each device call ends in
+    ``torch.cuda.synchronize()`` and its host wall time is recorded."""
+    from opticomlib_tpu_torch import devices as D, gv, ook
+    walls = {}
+
+    def call(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if timed:
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        return out
+
+    gv.default()
+    gv(sps=SPS, R=R, wavelength=1550e-9, Vpi=5, N=n_bits, device=device,
+       **({} if gv_seed is None else {"seed": gv_seed}))
+    if np_seed is not None:
+        np.random.seed(np_seed)
+    t0 = time.perf_counter()
+    tx = call("PRBS", D.PRBS, order=15, len=gv.N)
+    v = call("DAC", D.DAC, tx, Vpp=5, offset=-2.5, pulse_shape="gaussian")
+    laser = call("LASER", D.LASER, P0=5)
+    mod = call("MZM", D.MZM, laser, v, bias=-2.5, Vpi=5, loss_dB=3, ER_dB=26)
+    fib = call("FIBER", D.FIBER, mod, length=50, alpha=0.2, beta_2=-20,
+               gamma=2)
+    pdo = call("PD", D.PD, fib, BW=0.75 * R, r=1, include_noise="all")
+    rx, eye, rth = call("ook.DSP", ook.DSP, pdo)
+    ber = call("BER_analizer", ook.BER_analizer, "counter", Tx=tx, Rx=rx)
+    if timed:
+        walls["chain"] = time.perf_counter() - t0
+    n_err = int(np.sum(tx.data != rx.data))
+    gv.default()
+    return dict(v=pdo.to_numpy(), n_steps=fib.n_steps, ber=ber, n_err=n_err,
+                threshold=rth, eye=eye, walls=walls)
+
+
 def main() -> None:
     import torch
 
@@ -252,7 +333,8 @@ def main() -> None:
                             dtype=torch.complex64) * 0.1).contiguous()
 
     coeff = 1.3 * 0.38553 / 2  # gamma * h0 / 2 of the slice's first step
-    err = {k: 0.0 for k in REPLACES}
+    # fir_filter, the staged DAC's kernel, is checked in phase 8
+    err = {k: 0.0 for k in REPLACES if k != "fir_filter"}
     # (2, 2^24) is config 4's 2-polarisation field, multiplied by one
     # 2^24 spectral row; the negative coefficient is how the Yoshida w0
     # substep and every DBP span kick
@@ -346,7 +428,7 @@ def main() -> None:
     print("phase 2 kernels: ok " + "; ".join(
         f"{k} max_abs_err {err[k]:.3g}, {ms[k][0]:.4f} ms vs plain "
         f"{ms[k][1]:.4f} ms" + (f" ({gbs[k]:.0f} GB/s)" if k in gbs else "")
-        for k in REPLACES) + f"; adc_quantize link mode bit-exact with "
+        for k in err) + f"; adc_quantize link mode bit-exact with "
         f"{outside} samples outside the range extrapolated, kernel mode "
         f"{ms_adc_kernel_mode[0]:.4f} ms vs plain {ms_adc_kernel_mode[1]:.4f}"
         f" ms, stochastic mean off by {bias / dither_sigma:.2f} sigma",
@@ -493,11 +575,115 @@ def main() -> None:
           "target 0.01)", flush=True)
     del fields
 
+    # ---- phase 8: fir_filter against its plain version ----
+    from opticomlib_tpu_torch.ops import pulses
+    taps = {"gaussian": pulses.fir_taps(pulses.gauss_pulse(60, SPS).real)[0],
+            "nrz": pulses.fir_taps(pulses.nrz_pulse(60, SPS))[0]}
+    check(taps["gaussian"].size == 783 and taps["nrz"].size == 64, 8,
+          f"DAC taps {[h.size for h in taps.values()]}, expected 783 and 64")
+    err["fir_filter"] = 0.0
+    fir_ms = {}
+    for n, h in [(2**24, taps["gaussian"]), (2**24, taps["nrz"]),
+                 (2**20 + 3, taps["gaussian"]),
+                 (100_003, np.random.default_rng(0).normal(size=4097))]:
+        x = torch.randn(n, generator=g, device=dev)
+        hh = torch.as_tensor(h, dtype=torch.float32, device=dev)
+        y, yr = kernels.fir_filter(x, hh), kernels.fir_filter_ref(x, hh)
+        e = float((y - yr).abs().max())
+        bound = 1e-5 * float(yr.abs().max())
+        check(e <= bound, 8, f"fir_filter ({n}, {h.size} taps) max abs err "
+              f"{e:.3g} > {bound:.3g}")
+        err["fir_filter"] = max(err["fir_filter"], e)
+        if n == 2**24:
+            x64 = x.double()
+            fir_ms[h.size] = (
+                cuda_ms(torch, lambda: kernels.fir_filter(x, hh)),
+                cuda_ms(torch, lambda: kernels.fir_filter_ref(x, hh)),
+                cuda_ms(torch, lambda: pulses._fft_same(x64, h, h.size, 0)))
+        del x, y, yr
+    del x64
+    ms["fir_filter"] = fir_ms[783][:2]
+    print("phase 8 fir_filter: ok max_abs_err " + f"{err['fir_filter']:.3g} "
+          "(bound 1e-5 x max|y|); at 2^24 samples " + "; ".join(
+              f"{k} taps {t[0]:.4f} ms vs conv1d {t[1]:.4f} ms vs float64 "
+              f"FFT convolution {t[2]:.4f} ms ({k * 2**24 / t[0] / 1e9:.2f} "
+              "T FMA/s)" for k, t in fir_ms.items()), flush=True)
+
+    # ---- phase 9: the staged chain, card vs CPU on the same noise ----
+    res = {}
+    for name in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[name] = staged_chain(torch, SMALL_BITS_STAGED, name, np_seed=7)
+        res[name]["s"] = time.perf_counter() - t0
+    r_g, r_c = res["cuda"], res["cpu"]
+    rel = float(np.linalg.norm(r_g["v"] - r_c["v"]) / np.linalg.norm(r_c["v"]))
+    scan_step = abs(r_c["eye"].mu1 - r_c["eye"].mu0) / 999
+    check(r_g["n_steps"] == r_c["n_steps"], 9,
+          f"n_steps card {r_g['n_steps']} vs CPU {r_c['n_steps']}")
+    check(rel <= 1e-4, 9, f"v rel L2 {rel:.3g} > 1e-4")
+    check(r_g["n_err"] == r_c["n_err"], 9,
+          f"n_errors card {r_g['n_err']} vs CPU {r_c['n_err']}")
+    check(abs(r_g["threshold"] - r_c["threshold"]) <= 2 * scan_step, 9,
+          f"threshold card {r_g['threshold']} vs CPU {r_c['threshold']}")
+    print(f"phase 9 staged chain card-vs-cpu (2^20 samples): ok n_steps "
+          f"{r_g['n_steps']}, v rel L2 {rel:.3g}, n_errors {r_g['n_err']}, "
+          f"threshold {r_g['threshold']:.7f} vs {r_c['threshold']:.7f}; card "
+          f"{r_g['s']:.1f} s, CPU {r_c['s']:.1f} s", flush=True)
+    del res, r_g, r_c
+
+    # ---- phase 10: the staged chain at full size through the kernels ----
+    pin = PINNED_STAGED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    d = staged_chain(torch, N_BITS, "cuda", np_seed=pin["seed"], timed=True)
+    launches_staged = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    e = d["eye"]
+    check(all(launches_staged[k] > 0 for k in ("fir_filter", "nl_halfstep",
+                                                "cmul", "histogram2d")), 10,
+          f"launches {launches_staged}")
+    check(d["n_steps"] == pin["n_steps"], 10,
+          f"n_steps {d['n_steps']} != JAX {pin['n_steps']}")
+    check(d["ber"] == pin["ber"], 10, f"BER {d['ber']} != JAX {pin['ber']}")
+    step = abs(pin["mu1"] - pin["mu0"]) / 999
+    check(abs(d["threshold"] - pin["threshold"]) <= 2 * step, 10,
+          f"threshold {d['threshold']} vs JAX {pin['threshold']} "
+          f"(2 grid steps {2 * step:.3g})")
+    for k in ("mu0", "mu1", "s0", "s1"):
+        check(abs(getattr(e, k) - pin[k]) <= 1e-3 * abs(pin[k]), 10,
+              f"{k} {getattr(e, k)} vs JAX {pin[k]} (1e-3 relative)")
+    steady = staged_chain(torch, N_BITS, "cuda", np_seed=pin["seed"],
+                          timed=True)
+    check(steady["n_err"] == d["n_err"], 10, "the steady run differs")
+    fmt = lambda w: ", ".join(f"{k} {v * 1e3:.1f}" for k, v in w.items())
+    print(f"phase 10 staged chain (2^24 samples): ok n_steps {d['n_steps']}, "
+          f"BER {d['ber']} ({d['n_err']} errors), threshold "
+          f"{d['threshold']:.7f} (JAX {pin['threshold']:.7f}), mu0 "
+          f"{e.mu0:.6e} mu1 {e.mu1:.6e} s0 {e.s0:.6e} s1 {e.s1:.6e}; "
+          f"launches {launches_staged}; peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"phase 10 wall ms, first run: {fmt(d['walls'])}", flush=True)
+    print(f"phase 10 wall ms, second run: {fmt(steady['walls'])}", flush=True)
+    keyed = staged_chain(torch, N_BITS, "cuda", gv_seed=11)
+    from types import SimpleNamespace
+    hold_to_pin(SimpleNamespace(eye=keyed["eye"], ber=keyed["ber"],
+                                threshold=keyed["threshold"]), pin, 10)
+    check(keyed["n_steps"] == pin["n_steps"], 10,
+          f"keyed n_steps {keyed['n_steps']}")
+    print(f"phase 10 staged chain, gv(seed=11) noise: ok BER {keyed['ber']}, "
+          f"threshold {keyed['threshold']:.7f}, mu0 {keyed['eye'].mu0:.6e} "
+          f"mu1 {keyed['eye'].mu1:.6e} s0 {keyed['eye'].s0:.6e} s1 "
+          f"{keyed['eye'].s1:.6e}", flush=True)
+    del d, steady, keyed
+
+    by_path = {"config2": launches2, "config4": launches4,
+               "staged": launches_staged}
     print(json.dumps({"kernels": [
         {"name": k, "route": REPLACES[k][0], "source": REPLACES[k][1],
-         "replaces": REPLACES[k][2], "launches": launches4[k],
-         "launches_by_path": {"config2": launches2[k],
-                              "config4": launches4[k]},
+         "replaces": REPLACES[k][2],
+         "launches": sum(p[k] for p in by_path.values()),
+         "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1]}
         for k in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,22 @@ real arrays (``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``,
 number the spectral arrays with one counter in stage order), so
 ``prog.load_consts(consts_from_jax(jax_prog.consts))`` runs the port on the
 JAX program's own constants.
+
+:func:`signal_from_jax` and :func:`gv_from_jax` carry the staged API's
+state across: a JAX ``BinarySequence`` / ``ElectricalSignal`` /
+``OpticalSignal`` (NumPy or JAX leaves) becomes the port's, dtype, ``NULL``
+noise and polarizations kept, and the JAX ``gv``'s parameters become the
+port's.  Both read the JAX objects by their attributes, so the port imports
+nothing of JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["consts_from_jax"]
+from . import params, signals
+
+__all__ = ["consts_from_jax", "signal_from_jax", "gv_from_jax"]
 
 
 def consts_from_jax(consts: dict) -> dict:
@@ -38,3 +47,39 @@ def consts_from_jax(consts: dict) -> dict:
         else:
             out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return out
+
+
+def signal_from_jax(sig, device="cpu"):
+    """The port's counterpart of a JAX ``BinarySequence`` (a host copy of
+    its bits), ``ElectricalSignal`` or ``OpticalSignal`` (its leaves as
+    tensors on ``device``, dtype kept; ``NULL`` noise stays ``NULL``)."""
+    kind = type(sig).__name__
+    if kind == "BinarySequence":
+        return signals.BinarySequence(np.asarray(sig.data))
+    if kind not in ("ElectricalSignal", "OpticalSignal"):
+        raise TypeError(f"not a JAX signal: {type(sig)!r}")
+    device = params.check_device(device)
+
+    def leaf(x):
+        if type(x).__name__ == "NULLType":
+            return signals.NULL
+        return torch.as_tensor(np.array(x), device=device)
+
+    if kind == "OpticalSignal":
+        out = signals.OpticalSignal(leaf(sig.signal), leaf(sig.noise),
+                                    n_pol=int(sig.n_pol))
+    else:
+        out = signals.ElectricalSignal(leaf(sig.signal), leaf(sig.noise))
+    out.execution_time = float(getattr(sig, "execution_time", 0.0))
+    return out
+
+
+def gv_from_jax(gv):
+    """Set the port's ``gv`` to the parameters of the JAX ``gv`` (``sps``,
+    ``R``, ``fs``, ``N``, ``wavelength``); its device and extras stay.
+    Returns the port's ``gv``."""
+    p = gv.params
+    params.gv.params = params.SimParams(
+        sps=int(p.sps), R=float(p.R), fs=float(p.fs), N=int(p.N),
+        wavelength=float(p.wavelength))
+    return params.gv

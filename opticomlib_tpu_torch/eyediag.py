@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ["Eye"]
+__all__ = ["Eye", "eye"]
 
 
 class Eye:
@@ -57,3 +57,7 @@ class Eye:
     def empty(self) -> bool:
         """True when the object carries no trace data."""
         return self.__dict__.get("y") is None
+
+
+# reference-compatible lowercase alias
+eye = Eye

@@ -34,6 +34,8 @@ ENTRY_POINTS = {
     "adc_quantize": {
         "adc_kernel_launch": [_P, _P, _LL, _F, _F, _I, _I, _ULL, _P],
         "adc_link_launch": [_P, _P, _LL, _P, _P, _F, _P]},
+    "fir_filter": {
+        "fir_launch": [_P, _P, _P, _LL, _I, _P]},
 }
 
 

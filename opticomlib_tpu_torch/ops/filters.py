@@ -15,7 +15,7 @@ import scipy.signal as sg
 import torch
 
 __all__ = ["bessel_sos_response", "bessel_filtfilt_response",
-           "apply_freq_response"]
+           "apply_freq_response", "bessel_lpf"]
 
 
 @lru_cache(maxsize=256)
@@ -53,3 +53,14 @@ def apply_freq_response(x: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     order) and return to the time domain.  Real input -> real output."""
     y = torch.fft.ifft(torch.fft.fft(x, dim=-1) * H, dim=-1)
     return y if x.is_complex() else y.real
+
+
+def bessel_lpf(x: torch.Tensor, BW: float, fs: float,
+               n: int = 4) -> torch.Tensor:
+    """Zero-phase Bessel low-pass of the last axis of ``x`` (the operator of
+    the reference's ``sg.sosfiltfilt(sg.bessel(n, BW, norm='mag'), x)``,
+    devices.py:1363-1368, up to boundary handling).  The response is
+    float64 on the host, as the JAX package's NumPy path applies it."""
+    H2 = bessel_filtfilt_response(n, float(BW), float(fs),
+                                  int(x.shape[-1])).astype(np.float64)
+    return apply_freq_response(x, torch.as_tensor(H2, device=x.device))

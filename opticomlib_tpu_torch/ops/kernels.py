@@ -10,6 +10,7 @@ nl_halfstep   Triton, triton_kernels    pallas_kernels._nl_kernel
 cmul          Triton, triton_kernels    pallas_kernels._cmul_kernel
 histogram2d   CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
 adc_quantize  CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
+fir_filter    CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
 ============  ========================  ===============================
 
 ``adc_quantize`` has two wrappers over one kernel source: kernel mode
@@ -36,10 +37,12 @@ import torch
 __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
            "histogram2d", "histogram2d_ref", "adc_quantize",
            "adc_quantize_ref", "adc_quantize_link", "adc_quantize_link_ref",
-           "LAUNCHES", "reset_launches"]
+           "fir_filter", "fir_filter_ref", "FIR_MAX_TAPS", "LAUNCHES",
+           "reset_launches"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "histogram2d": 0, "adc_quantize": 0}
+LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "histogram2d": 0, "adc_quantize": 0,
+            "fir_filter": 0}
 
 
 def reset_launches() -> None:
@@ -270,4 +273,57 @@ def adc_quantize_link(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(lib, err, "adc_quantize")
     LAUNCHES["adc_quantize"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# causal FIR filter
+# ---------------------------------------------------------------------------
+#: most taps the ``fir_filter`` kernel takes (its window and taps fit one
+#: CTA's shared memory; ``kMaxTaps`` in csrc/fir_filter.cu)
+FIR_MAX_TAPS = 8192
+
+
+def fir_filter_ref(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``conv1d`` over the flipped taps with ``taps - 1``
+    zeros of left padding, in full float32 (cuDNN's TF32 path is switched
+    off for the call)."""
+    xp = torch.nn.functional.pad(x.reshape(1, 1, -1), (h.numel() - 1, 0))
+    w = torch.flip(h, (0,)).reshape(1, 1, -1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return torch.nn.functional.conv1d(xp, w).reshape(-1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def fir_filter(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Causal FIR ``y[n] = sum_{j<taps} h[j] x[n-j]`` with ``x[<0] = 0`` and
+    ``len(y) = len(x)``, the function of the TPU kernel
+    ``pallas_kernels.fir_filter``.  ``x`` and ``h``: contiguous 1-D float32
+    on one device, ``1 <= taps <= FIR_MAX_TAPS``; the kernel sums each
+    output in float32 in tap order."""
+    _check(x, "x", torch.float32)
+    _check(h, "h", torch.float32)
+    if x.ndim != 1 or h.ndim != 1:
+        raise ValueError(f"x and h must be 1-D, got {tuple(x.shape)} and "
+                         f"{tuple(h.shape)}")
+    if not 1 <= h.numel() <= FIR_MAX_TAPS:
+        raise ValueError(f"fir_filter takes 1 to {FIR_MAX_TAPS} taps, got "
+                         f"{h.numel()}")
+    if not _on_cuda(x, h):
+        return fir_filter_ref(x, h)
+    from . import _build
+    lib = _build.load_library("fir_filter")
+    y = torch.empty_like(x)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            err = lib.fir_launch(
+                ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(h.data_ptr()),
+                ctypes.c_void_p(y.data_ptr()), ctypes.c_longlong(x.numel()),
+                ctypes.c_int(h.numel()),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(lib, err, "fir_filter")
+        LAUNCHES["fir_filter"] += 1
     return y

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["ase_power", "ase_sigma", "gaussian", "wiener_phase"]
+__all__ = ["ase_power", "ase_sigma", "gaussian", "wiener_phase",
+           "ase_draws"]
 
 
 def gaussian(shape, sigma, generator: torch.Generator,
@@ -58,3 +59,13 @@ def ase_sigma(G_dB: float, NF_dB: float, f0: float, fs: float) -> float:
     """Per-quadrature ASE standard deviation: ``P_ase`` split over 2
     polarizations × (re, im) quadratures → ``sqrt(P_ase/4)``."""
     return float(np.sqrt(ase_power(G_dB, NF_dB, f0, fs) / 4.0))
+
+
+def ase_draws(n: int, P_ase: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """EDFA ASE field noise on the generator's device: a (2, n) complex128
+    tensor, 2 polarizations x (re, im) quadratures of ``N(0, P_ase/4)``
+    each, drawn in float32 (port of ``opticomlib_tpu.ops.noise.ase_draws``;
+    reference devices.py:930-936)."""
+    d = gaussian((4, n), np.sqrt(P_ase / 4), generator).to(torch.float64)
+    return torch.complex(d[:2], d[2:])

@@ -22,6 +22,12 @@ float32 on the device: ``z``, ``h`` and the next ``h`` are ``np.float32``
 so the step counts match the JAX package's.  The adaptive loops read back
 once per step (``max|A|^2``, or the two error norms of a step-doubling
 attempt): the read-back decides ``h`` and termination.
+
+The staged wrappers (:func:`ssfm_propagate`, :func:`ssfm_scan_o4`,
+:func:`ssfm_o4_auto`, :func:`ssfm_local_error`; what ``devices.FIBER``
+runs) take a complex field tensor and the angular-frequency axis, and
+return ``(A, n_steps)``: the complex64 field on ``A``'s device and the
+number of steps taken (attempted, for the step-doubling schemes).
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from . import kernels
 __all__ = ["dispersion_phase", "alpha_per_km", "adaptive_h0",
            "ssfm_step_schedule", "max_power", "ssfm_while_inside",
            "ssfm_scan_inside", "ssfm_o4_scan_inside", "ssfm_o4_auto_inside",
-           "ssfm_local_error_inside"]
+           "ssfm_local_error_inside", "ssfm_propagate", "ssfm_scan_o4",
+           "ssfm_o4_auto", "ssfm_local_error"]
 
 _LOG10E_X10 = 4.342944819032518  # 10*log10(e): dB/km -> 1/km divisor
 _MAX_STEPS = 400_000  # runaway backstop, as in the JAX loop
@@ -288,3 +295,67 @@ def ssfm_local_error_inside(A: torch.Tensor, phi_w: torch.Tensor, length,
 
     return _step_doubling_controller(A, length, h0, tol, attempt, 4.0, 3.0,
                                      2.0 ** (1.0 / 3.0))
+
+
+# ----------------------------------------------------------------------
+# staged wrappers (ops/ssfm.py:538-741 of the JAX package)
+# ----------------------------------------------------------------------
+def _prepare(A: torch.Tensor, w_rad_s, beta_2, beta_3):
+    A = A.to(torch.complex64).contiguous()
+    phi_w = torch.as_tensor(dispersion_phase(w_rad_s, beta_2, beta_3),
+                            device=A.device)
+    return A, phi_w
+
+
+def ssfm_propagate(A: torch.Tensor, w_rad_s, length: float,
+                   alpha: float = 0.0, beta_2: float = 0.0,
+                   beta_3: float = 0.0, gamma: float = 0.0,
+                   phi_max: float = 0.01, h=None):
+    """Propagate the field ``A`` (complex, last axis = time) through
+    ``length`` km of fiber with the reference scheme (reference
+    devices.py:1038-1206): fixed steps of ``h``, or ``phi_max``-adaptive
+    from the input's peak power.
+
+    NOTE reference parity quirk (devices.py:1154-1160), kept: a
+    dispersion-free span, or ``gamma == 0``, takes ONE full-span step when
+    ``h`` is not given, even with ``gamma != 0`` and ``alpha != 0``."""
+    A, phi_w = _prepare(A, w_rad_s, beta_2, beta_3)
+    a_km = alpha_per_km(alpha)
+    linear_only = (beta_2 == 0 and beta_3 == 0) or gamma == 0
+    if h is not None or linear_only:
+        hs = (ssfm_step_schedule(length, h) if h is not None
+              else np.asarray([length], dtype=np.float32))
+        return ssfm_scan_inside(A, phi_w, hs, gamma, a_km), len(hs)
+    h0 = adaptive_h0(phi_max, gamma, float(max_power(A)), length)
+    return ssfm_while_inside(A, phi_w, length, gamma, phi_max, h0, a_km,
+                             adaptive=True)
+
+
+def ssfm_scan_o4(A: torch.Tensor, w_rad_s, length: float, alpha=0.0,
+                 beta_2=0.0, beta_3=0.0, gamma=0.0, h=1.0):
+    """Fixed-step 4th-order (Yoshida) propagation over the schedule of
+    ``h``-sized steps."""
+    A, phi_w = _prepare(A, w_rad_s, beta_2, beta_3)
+    hs = ssfm_step_schedule(length, h)
+    return ssfm_o4_scan_inside(A, phi_w, hs, gamma,
+                               alpha_per_km(alpha)), len(hs)
+
+
+def ssfm_o4_auto(A: torch.Tensor, w_rad_s, length: float, alpha=0.0,
+                 beta_2=0.0, beta_3=0.0, gamma=0.0, tol=1e-5, h0=None):
+    """Self-tuning 4th-order propagation (step-doubling control to the
+    relative local error ``tol`` a step; first step ``length/10``)."""
+    A, phi_w = _prepare(A, w_rad_s, beta_2, beta_3)
+    h0 = length / 10.0 if h0 is None else h0
+    return ssfm_o4_auto_inside(A, phi_w, length, gamma, tol,
+                               min(h0, length), alpha_per_km(alpha))
+
+
+def ssfm_local_error(A: torch.Tensor, w_rad_s, length: float, alpha=0.0,
+                     beta_2=0.0, beta_3=0.0, gamma=0.0, tol=1e-5, h0=None):
+    """Sinkin local-error propagation (Strang steps under step-doubling
+    control to ``tol``; first step ``length/10``)."""
+    A, phi_w = _prepare(A, w_rad_s, beta_2, beta_3)
+    h0 = length / 10.0 if h0 is None else h0
+    return ssfm_local_error_inside(A, phi_w, length, gamma, tol,
+                                   min(h0, length), alpha_per_km(alpha))

@@ -1,6 +1,10 @@
-"""Simulation parameters: :class:`SimParams`, copied from
-``opticomlib_tpu.params`` (NumPy only).  The mutable ``gv`` facade is not
-ported: the port takes explicit parameters everywhere."""
+"""Simulation parameters: the immutable :class:`SimParams` and the mutable
+``gv`` facade of the staged devices (copied from ``opticomlib_tpu.params``,
+NumPy only).  The fused link takes explicit parameters; the staged devices
+read ``gv``, and the sources among them (``DAC``, ``LASER``, and signals
+built from host data) put their tensors on ``gv``'s device:
+``gv(device="cuda")``.  The default is the CPU; a CUDA device without a card
+raises, it never falls back to the CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +13,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
+import torch
 from scipy.constants import c as _c
 
 logger = logging.getLogger("opticomlib_tpu_torch")
@@ -18,7 +23,8 @@ _DEFAULT_R = 1e9
 _DEFAULT_N = 128
 _DEFAULT_WAVELENGTH = 1550e-9
 
-__all__ = ["SimParams"]
+__all__ = ["SimParams", "GlobalVariables", "global_variables", "gv",
+           "resolve_params", "current_device", "check_device"]
 
 
 @dataclass(frozen=True)
@@ -174,3 +180,134 @@ class SimParams:
             f"\tt   :  {self.t}\n"
             f"\tdw  :  {self.dw:.2e}\n"
         )
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when no
+    card is available (there is no fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA device is available "
+            "(torch.cuda.is_available() is False); use device='cpu'")
+    return device
+
+
+class GlobalVariables:
+    """Mutable facade with the reference ``gv`` interface
+    (reference: opticomlib/typing.py:106-388) backed by an immutable
+    :class:`SimParams`.
+
+    Custom user variables set via ``gv(foo=...)`` are stored in
+    ``self._extras`` and exposed as attributes; ``default()`` resets
+    everything and deletes the extras, matching typing.py:361-386.  Two
+    extras act: ``seed`` seeds the keyed-noise stream
+    (:mod:`opticomlib_tpu_torch.rng`) and ``device`` is where the sources
+    put their tensors (checked when set).
+    """
+
+    _CORE = ("sps", "R", "fs", "dt", "wavelength", "f0", "N", "t", "w", "dw",
+             "nsamples", "params", "plt_style", "verbose")
+
+    def __init__(self) -> None:
+        object.__setattr__(self, "params", SimParams())
+        object.__setattr__(self, "plt_style", "fast")
+        object.__setattr__(self, "verbose", None)
+        object.__setattr__(self, "_extras", {})
+
+    # -- delegation to SimParams --
+    def __getattr__(self, name: str):
+        # only called when normal lookup fails
+        params = object.__getattribute__(self, "params")
+        if name in ("sps", "R", "fs", "N", "wavelength", "dt", "f0", "t",
+                    "w", "dw", "nsamples", "w_fftorder"):
+            return getattr(params, name)
+        extras = object.__getattribute__(self, "_extras")
+        if name in extras:
+            return extras[name]
+        raise AttributeError(
+            f"'{type(self).__name__}' object has no attribute '{name}'")
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name in ("params", "plt_style", "verbose", "_extras"):
+            object.__setattr__(self, name, value)
+        elif name in ("sps", "R", "fs", "N", "wavelength"):
+            object.__setattr__(self, "params",
+                               self.params.replace(**{name: value}))
+        else:
+            if name == "device":
+                check_device(value)
+            self._extras[name] = value
+
+    def __call__(
+        self,
+        sps: Optional[int] = None,
+        R: Optional[float] = None,
+        fs: Optional[float] = None,
+        wavelength: float = _DEFAULT_WAVELENGTH,
+        N: Optional[int] = None,
+        plt_style: str = "fast",
+        verbose=None,
+        **kwargs: Any,
+    ) -> "GlobalVariables":
+        if verbose is not None:
+            self.verbose = verbose
+            logger.setLevel(verbose)
+
+        new = SimParams.create(sps=sps, R=R, fs=fs, N=None,
+                               wavelength=wavelength, base=self.params)
+        n_slots = int(N) if N is not None else self.params.N
+        object.__setattr__(self, "params", new.replace(N=n_slots))
+        # plotting is not ported: plt_style is only recorded
+        self.plt_style = plt_style
+
+        if "device" in kwargs:
+            check_device(kwargs["device"])
+        for key, value in kwargs.items():
+            self._extras[key] = value
+            if key == "seed":  # seed the keyed-noise stream
+                from . import rng
+                rng.seed(int(value))
+        return self
+
+    def default(self) -> "GlobalVariables":
+        object.__setattr__(self, "params", SimParams())
+        self.plt_style = "fast"
+        self.verbose = None
+        logger.setLevel(logging.NOTSET)
+        if "seed" in self._extras:
+            from . import rng
+            rng.clear()
+        self._extras.clear()
+        return self
+
+    def print(self) -> "GlobalVariables":
+        print(self)
+        return self
+
+    def __str__(self) -> str:
+        msg = str(self.params)
+        msg += (
+            "  Config\n  ------\n"
+            f"\tplt_style :  \"{self.plt_style}\"\n"
+            f"\tverbose   :  {self.verbose}\n"
+        )
+        if self._extras:
+            msg += "  Custom\n  ------\n\t" + "\n\t".join(
+                f"{k} : {v}" for k, v in self._extras.items()) + "\n"
+        return msg
+
+
+# Reference-compatible aliases (opticomlib exposes `global_variables` + `gv`).
+global_variables = GlobalVariables
+gv = GlobalVariables()
+
+
+def resolve_params(params: Optional[SimParams]) -> SimParams:
+    """Return ``params`` if given, else the current global configuration."""
+    return params if params is not None else gv.params
+
+
+def current_device() -> torch.device:
+    """The device of ``gv`` (``gv(device=...)``; the CPU by default)."""
+    return check_device(gv._extras.get("device", "cpu"))

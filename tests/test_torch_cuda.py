@@ -1,5 +1,6 @@
 """The port on an NVIDIA card: each hand-written kernel against its plain
-PyTorch version, and the link on the card against the link on the CPU.
+PyTorch version, and the link and the staged README chain on the card
+against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs on its own:
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from opticomlib_tpu_torch import link
+from opticomlib_tpu_torch import devices, gv, link, ook
 from opticomlib_tpu_torch.ops import kernels
 from opticomlib_tpu_torch.ops.prbs import prbs
 from opticomlib_tpu_torch.params import SimParams
@@ -143,3 +144,58 @@ def test_adc_stochastic_statistics(cuda_device):
     assert torch.equal(y, kernels.adc_quantize(x, 0.0, 1.0, 2,
                                                stochastic=True, seed=3))
     assert not torch.equal(y[:65536], y[65536:131072])
+
+
+@pytest.mark.parametrize("n", [1, 5, 2047, 2048, 2049, 2**20 + 3])
+@pytest.mark.parametrize("taps", [1, 64, 783, kernels.FIR_MAX_TAPS])
+def test_fir_filter_matches_plain(cuda_device, n, taps):
+    """Within 1e-5 of max|y| (float32 sums in another order than cuDNN's
+    full-float32 convolution); lengths around the 2048-output block, taps
+    longer than the input."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + taps)
+    x = torch.randn(n, generator=g, device=cuda_device)
+    h = torch.randn(taps, generator=g, device=cuda_device)
+    y, yr = kernels.fir_filter(x, h), kernels.fir_filter_ref(x, h)
+    torch.cuda.synchronize()
+    assert float((y - yr).abs().max()) <= 1e-5 * float(yr.abs().max())
+    assert kernels.LAUNCHES["fir_filter"] == 1
+
+
+def test_fir_filter_delta_and_limits(cuda_device):
+    x = torch.randn(10_001, device=cuda_device)
+    h = torch.zeros(11, device=cuda_device)
+    h[0] = 1.0
+    assert torch.equal(kernels.fir_filter(x, h), x)
+    with pytest.raises(ValueError, match="taps"):
+        kernels.fir_filter(x, torch.ones(kernels.FIR_MAX_TAPS + 1,
+                                         device=cuda_device))
+    with pytest.raises(ValueError):
+        kernels.fir_filter(x, h.cpu())
+    assert kernels.fir_filter(x[:0], h).numel() == 0
+    assert kernels.LAUNCHES["fir_filter"] == 1
+
+
+def test_staged_chain_on_card_matches_cpu(cuda_device):
+    """The README chain at 2^10 bits x sps 64 on the same numpy draws: the
+    same steps and decisions, the PD voltage within relative L2 1e-4."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gv.default()
+        gv(sps=64, R=10e9, Vpi=5, N=2**10, device=dev)
+        np.random.seed(0)
+        tx = devices.PRBS(order=15, len=gv.N)
+        v = devices.DAC(tx, Vpp=5, offset=-2.5, pulse_shape="gaussian")
+        mod = devices.MZM(devices.LASER(P0=5), v, bias=-2.5, Vpi=5,
+                          loss_dB=3, ER_dB=26)
+        fib = devices.FIBER(mod, length=50, alpha=0.2, beta_2=-20, gamma=2)
+        pdo = devices.PD(fib, BW=7.5e9, include_noise="all")
+        rx, _, rth = ook.DSP(pdo)
+        assert pdo.device.type == dev
+        out[dev] = (fib.n_steps, pdo.to_numpy(), rx.data, rth)
+    gv.default()
+    (sg, vg, rg, tg), (sc, vc, rc, tc) = out["cuda"], out["cpu"]
+    assert sg == sc
+    assert np.linalg.norm(vg - vc) / np.linalg.norm(vc) <= 1e-4
+    assert np.array_equal(rg, rc)
+    assert kernels.LAUNCHES["fir_filter"] >= 1
+    assert kernels.LAUNCHES["nl_halfstep"] >= sg

@@ -96,8 +96,11 @@ def test_wrappers_take_plain_path_on_cpu():
     lo, hi = x.min(), x.max()
     assert torch.equal(kernels.adc_quantize_link(x, lo, hi, 6),
                        kernels.adc_quantize_link_ref(x, lo, hi, 6))
+    h = x[:17].contiguous()
+    assert torch.equal(kernels.fir_filter(x, h), kernels.fir_filter_ref(x, h))
     assert kernels.LAUNCHES == {"nl_halfstep": 0, "cmul": 0,
-                                "histogram2d": 0, "adc_quantize": 0}
+                                "histogram2d": 0, "adc_quantize": 0,
+                                "fir_filter": 0}
     assert "triton" not in sys.modules
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of opticomlib_tpu_torch
 imports neither JAX nor the JAX package, and asking for a CUDA device
-without a card raises instead of falling back to the CPU."""
+without a card raises instead of falling back to the CPU (``build_link``
+and ``gv(device=...)`` alike)."""
 import subprocess
 import sys
 
@@ -17,7 +18,10 @@ _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
             "opticomlib_tpu_torch.ops.eyeana", "opticomlib_tpu_torch.ops.noise",
             "opticomlib_tpu_torch.ops.filters",
             "opticomlib_tpu_torch.ops.pulses", "opticomlib_tpu_torch.ops.prbs",
-            "opticomlib_tpu_torch.utils.analysis")
+            "opticomlib_tpu_torch.utils.analysis",
+            "opticomlib_tpu_torch.utils.theory", "opticomlib_tpu_torch.rng",
+            "opticomlib_tpu_torch.signals", "opticomlib_tpu_torch.devices",
+            "opticomlib_tpu_torch.ook", "opticomlib_tpu_torch.models.ook")
 
 
 def test_port_imports_no_jax():
@@ -41,3 +45,13 @@ def test_cuda_device_without_card_raises(monkeypatch):
         build_link(LinkSpec(), 16, SimParams.create(sps=8, R=1e9,
                                                     _warn=False),
                    device="cuda")
+
+
+def test_gv_cuda_device_without_card_raises(monkeypatch):
+    from opticomlib_tpu_torch import gv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gv(device="cuda")
+    finally:
+        gv.default()
