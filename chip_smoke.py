@@ -16,7 +16,8 @@ through ``build_link`` -> ``LinkProgram.dsp``,
   99.99 % range, and the same receiver; 2^20 bits x 16 samples per bit;
 
 and one through the staged drop-in API, the README quickstart:
-``gv(sps=64, R=10e9, Vpi=5, N=2**18, device="cuda")``, ``PRBS`` (order 15)
+``gv(sps=64, R=10e9, Vpi=5, N=2**18)`` (the card is ``gv``'s default device;
+the last run leaves ``device="cuda"`` out to show it), ``PRBS`` (order 15)
 -> ``DAC`` (gaussian, pulse shaped by the ``fir_filter`` kernel) ->
 ``MZM(LASER(P0=5))`` -> ``FIBER`` (50 km, phi_max-adaptive) -> ``PD`` (all
 noise) -> ``ook.DSP`` -> ``ook.BER_analizer``; 2^18 bits x 64.
@@ -27,8 +28,11 @@ It checks them in phases, one line each; any failure exits non-zero:
 1. the hand-written kernels build from the sources in this checkout (one
    ``nvcc`` per CUDA source, started together, and Triton);
 2. each kernel agrees with its plain PyTorch version at the main paths'
-   shapes (tolerance 2e-5; histogram counts and ADC outputs exact), and is
-   timed beside it (median of 20 runs, CUDA events);
+   shapes (``nl_halfstep`` to 2e-5; ``cmul``, histogram counts and ADC
+   outputs bit for bit; ``cmul`` also at an odd length and on views 8 bytes
+   off a 16-byte boundary), and is timed beside it and, where one PyTorch
+   call computes the same function, beside that call (median of 20 runs,
+   CUDA events);
 3. config 2 at 2^20 samples runs on the card and on the CPU on the same
    numpy noise draws, and the two agree;
 4. config 2 at full size runs once through the kernels (launch counters)
@@ -43,19 +47,24 @@ It checks them in phases, one line each; any failure exits non-zero:
    is the launch field to relative L2 0.01;
 8. the ``fir_filter`` kernel agrees with its plain version (``conv1d``) to
    1e-5 of max|y| at the DAC's shapes (2^24 samples, 783 gaussian and 64
-   nrz taps), an odd length and more taps than its 2048-output block, and
-   is timed beside the plain version and the FFT convolution the DAC takes
+   nrz taps), an odd length, more taps than its 1024-output block, and 1,
+   7, 8, 9 and 8192 taps (around its 8-tap chunk, and its limit), and is
+   timed beside the plain version and the FFT convolution the DAC takes
    above the kernel's limit;
 9. the staged chain at 2^20 samples runs on the card and on the CPU on the
    same ``np.random`` draws, and the two agree;
 10. the staged chain at full size runs through the kernels under a fixed
     ``np.random.seed`` and is held to the JAX package's pinned result on
-    the same seed, then once with ``gv(seed=...)`` on-device noise, held
-    statistically.
+    the same seed, then once with ``gv(seed=...)`` on-device noise and no
+    device named, held statistically.
 
-The line before the last is a JSON object with each kernel's launches
-(summed over the counted runs of the three paths; per path under
-``launches_by_path``), error and times; the last line is
+The line before the last is a JSON object with, for each kernel, its
+launches (summed over the counted runs of the three paths; per path under
+``launches_by_path``), its error, its time, the plain version's, the
+library call's where there is one (``library_ms``, else null) and its bound
+``bound_ms``: the least time the card could take, the larger of the bytes
+the function must move over 3.35 TB/s and its float32 operations over
+67 TFLOP/s (``bound_by`` says which); the last line is
 ``{"ok": true, "device": {...}}``.  Compiled kernels go to ``build/`` in
 this checkout.
 """
@@ -135,7 +144,7 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 REPLACES = {
     "nl_halfstep": ("triton", "opticomlib_tpu_torch/ops/triton_kernels.py",
                     "opticomlib_tpu/ops/pallas_kernels.py:81"),
-    "cmul": ("triton", "opticomlib_tpu_torch/ops/triton_kernels.py",
+    "cmul": ("cuda", "opticomlib_tpu_torch/ops/csrc/cmul.cu",
              "opticomlib_tpu/ops/pallas_kernels.py:134"),
     "histogram2d": ("cuda", "opticomlib_tpu_torch/ops/csrc/histogram2d.cu",
                     "opticomlib_tpu/ops/pallas_kernels.py:342"),
@@ -144,6 +153,21 @@ REPLACES = {
     "fir_filter": ("cuda", "opticomlib_tpu_torch/ops/csrc/fir_filter.cu",
                    "opticomlib_tpu/ops/pallas_kernels.py:168"),
 }
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 3.35 TB/s; float32
+# outside the tensor cores 67 TFLOP/s (an FMA is two operations).
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+
+
+def bound_ms(n_bytes: float, n_flop: float):
+    """The least time for ``n_bytes`` moved (each input read once, each
+    output written once) and ``n_flop`` float32 operations: the larger of
+    bytes / 3.35 TB/s and flop / 67 TFLOP/s, in ms, and which one it is."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_flop = n_flop / PEAK_FP32_FLOP_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_flop
+            else (t_flop, "operations"))
 
 
 def fail(phase: int, msg: str):
@@ -156,9 +180,13 @@ def check(cond, phase: int, msg: str):
         fail(phase, msg)
 
 
-def cuda_ms(torch, fn, reps: int = 20) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` runs (CUDA
-    events around each run, after one warm-up)."""
+def cuda_ms(torch, fn, reps: int = 20, inner: int = 1) -> float:
+    """Median device time of one ``fn()`` in ms over ``reps`` runs (CUDA
+    events around ``inner`` calls in a row, after one warm-up).  With
+    ``inner = 1`` the time includes the host's work between the first event
+    and the launch (the wrapper, the allocation, the binding); with more,
+    the launches queue behind one another as they do on the paths, and the
+    host's share drops out unless the host is the slower side."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -166,11 +194,19 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def timed(torch, *fns):
+    """``(single, queued)``: each of ``fns`` timed one launch at a time, and
+    ten in a row."""
+    return (tuple(cuda_ms(torch, f) for f in fns),
+            tuple(cuda_ms(torch, f, inner=10) for f in fns))
 
 
 def config2_spec(link):
@@ -239,8 +275,9 @@ def timed_dsp(torch, kernels, prog, bits, seed=3, steady=3):
 
 def staged_chain(torch, n_bits, device, np_seed=None, gv_seed=None,
                  timed=False):
-    """The README quickstart through the staged API on ``device``, legacy
-    noise under ``np.random.seed(np_seed)`` or on-device noise from
+    """The README quickstart through the staged API on ``device`` (``None``:
+    no device named, ``gv``'s default), legacy noise under
+    ``np.random.seed(np_seed)`` or on-device noise from
     ``gv(seed=gv_seed)``.  With ``timed``, each device call ends in
     ``torch.cuda.synchronize()`` and its host wall time is recorded."""
     from opticomlib_tpu_torch import devices as D, gv, ook
@@ -255,7 +292,8 @@ def staged_chain(torch, n_bits, device, np_seed=None, gv_seed=None,
         return out
 
     gv.default()
-    gv(sps=SPS, R=R, wavelength=1550e-9, Vpi=5, N=n_bits, device=device,
+    gv(sps=SPS, R=R, wavelength=1550e-9, Vpi=5, N=n_bits,
+       **({} if device is None else {"device": device}),
        **({} if gv_seed is None else {"seed": gv_seed}))
     if np_seed is not None:
         np.random.seed(np_seed)
@@ -274,7 +312,7 @@ def staged_chain(torch, n_bits, device, np_seed=None, gv_seed=None,
     n_err = int(np.sum(tx.data != rx.data))
     gv.default()
     return dict(v=pdo.to_numpy(), n_steps=fib.n_steps, ber=ber, n_err=n_err,
-                threshold=rth, eye=eye, walls=walls)
+                threshold=rth, eye=eye, walls=walls, device=pdo.device.type)
 
 
 def main() -> None:
@@ -350,9 +388,25 @@ def main() -> None:
                 (B - Br).abs().max()), float((H - Hr).abs().max()))
             for other in (E, B):
                 C, Cr = kernels.cmul(A, other), kernels.cmul_ref(A, other)
-                torch.testing.assert_close(C, Cr, **TOL)
+                # the kernel writes its rounding down as torch's complex
+                # product rounds on the card: the same bits
+                check(torch.equal(C, Cr), 2, f"cmul {shape} x "
+                      f"{tuple(other.shape)} differs from A * B: max abs "
+                      f"{float((C - Cr).abs().max()):.3g}")
                 err["cmul"] = max(err["cmul"], float((C - Cr).abs().max()))
         del A, E, B, H, Br, Hr, C, Cr, other
+    # cmul on views 8 bytes off a 16-byte boundary (the launcher's scalar
+    # path), same-shape and broadcast, even and odd lengths
+    for shape in [(2**20,), (2**20 + 1,), (2, 2**20), (2, 2**20 + 1)]:
+        for off_a, off_b in ((1, 0), (0, 1), (1, 1)):
+            A = field(int(np.prod(shape)) + 1)[off_a:off_a + int(
+                np.prod(shape))].reshape(shape)
+            E = field(shape[-1] + 1)[off_b:off_b + shape[-1]]
+            C, Cr = kernels.cmul(A, E), kernels.cmul_ref(A, E)
+            check(torch.equal(C, Cr), 2, f"cmul {shape}, views offset "
+                  f"({off_a}, {off_b}), differs from A * B: max abs "
+                  f"{float((C - Cr).abs().max()):.3g}")
+    del A, E, C, Cr
     for n, nt, ny in [(2**20, 1, 4096), (2**20, 64, 256),
                       (2**20, 256, 1024)]:
         t = torch.randint(0, nt, (n,), generator=g, device=dev,
@@ -400,40 +454,72 @@ def main() -> None:
           f"(3 sigma {3 * dither_sigma:.3g}) or off grid or repeating")
     err["adc_quantize"] = float((y - yr).abs().max())
 
-    A, E = field(2**24), field(2**24)
+    A, E, A2 = field(2**24), field(2**24), field(2, 2**24)
     ybins = torch.randint(-1, 4096, (2**20,), generator=g, device=dev,
                           dtype=torch.int32)
     tzero = torch.zeros_like(ybins)
-    ms = {
-        "nl_halfstep": (cuda_ms(torch, lambda: kernels.nl_halfstep(A, coeff)),
-                        cuda_ms(torch, lambda: kernels.nl_halfstep_ref(
-                            A, coeff))),
-        "cmul": (cuda_ms(torch, lambda: kernels.cmul(A, E)),
-                 cuda_ms(torch, lambda: kernels.cmul_ref(A, E))),
+    pairs = {
+        "nl_halfstep": (lambda: kernels.nl_halfstep(A, coeff),
+                        lambda: kernels.nl_halfstep_ref(A, coeff)),
+        "cmul": (lambda: kernels.cmul(A, E), lambda: kernels.cmul_ref(A, E)),
+        # config 4's shape: the 2-polarisation field times one spectral row
+        "cmul_2pol": (lambda: kernels.cmul(A2, E),
+                      lambda: kernels.cmul_ref(A2, E)),
         "histogram2d": (
-            cuda_ms(torch, lambda: kernels.histogram2d(tzero, ybins, 1, 4096)),
-            cuda_ms(torch, lambda: kernels.histogram2d_ref(tzero, ybins, 1,
-                                                           4096))),
+            lambda: kernels.histogram2d(tzero, ybins, 1, 4096),
+            lambda: kernels.histogram2d_ref(tzero, ybins, 1, 4096)),
         "adc_quantize": (
-            cuda_ms(torch, lambda: kernels.adc_quantize_link(v, lo, hi, 8)),
-            cuda_ms(torch, lambda: kernels.adc_quantize_link_ref(v, lo, hi,
-                                                                 8))),
+            lambda: kernels.adc_quantize_link(v, lo, hi, 8),
+            lambda: kernels.adc_quantize_link_ref(v, lo, hi, 8)),
     }
+    # ms: one launch between two events (the earlier records' figure); ms10:
+    # ten launches in a row, as the paths queue them
+    ms, ms10 = {}, {}
+    for k, fns in pairs.items():
+        ms[k], ms10[k] = timed(torch, *fns)
     ms_adc_kernel_mode = (
         cuda_ms(torch, lambda: kernels.adc_quantize(v, 0.0, 0.3, 8)),
         cuda_ms(torch, lambda: kernels.adc_quantize_ref(v, 0.0, 0.3, 8)))
-    bytes_per = {"nl_halfstep": 24, "cmul": 24, "adc_quantize": 8}
-    gbs = {k: b * 2**24 / (ms[k][0] * 1e-3) / 1e9
+    # one PyTorch call for the same function, timed beside the kernel and
+    # used nowhere in the port: torch.mul for cmul (nl_halfstep's plain
+    # version is four passes, the ADC's five, and bincount needs a mask and
+    # an index pass before it: no single call, so null)
+    library = {"cmul": cuda_ms(torch, lambda: torch.mul(A, E), inner=10),
+               "cmul_2pol": cuda_ms(torch, lambda: torch.mul(A2, E),
+                                    inner=10)}
+    # Bounds, from the bytes each function must move (inputs read once,
+    # outputs written once) and its float32 operations at these shapes:
+    #   nl_halfstep  8 B read + 16 B written a sample; |A|^2 * c (4), cos
+    #                and sin (counted 1 each), the rotation (6): 12 flop
+    #   cmul         16 B + 8 B a sample (same shape), 6 flop; 2-pol: A and
+    #                C at 2 x 8 B a column and the row once
+    #   histogram2d  2 x 4 B a pair + the (1, 4096) float32 counts; one add
+    #   adc_quantize 4 B + 4 B a sample; 6 flop (sub, div, mul, round, div,
+    #                fma-free mul and add)
+    n24 = 2**24
+    bounds = {"nl_halfstep": bound_ms(24 * n24, 12 * n24),
+              "cmul": bound_ms(24 * n24, 6 * n24),
+              "cmul_2pol": bound_ms((2 * 16 + 8) * n24, 2 * 6 * n24),
+              "histogram2d": bound_ms(8 * 2**20 + 4 * 4096, 2**20),
+              "adc_quantize": bound_ms(8 * n24, 6 * n24)}
+    bytes_per = {"nl_halfstep": 24, "cmul": 24, "cmul_2pol": 40,
+                 "adc_quantize": 8}
+    gbs = {k: b * 2**24 / (ms10[k][0] * 1e-3) / 1e9
            for k, b in bytes_per.items()}
+    err["cmul_2pol"] = err["cmul"]
     print("phase 2 kernels: ok " + "; ".join(
         f"{k} max_abs_err {err[k]:.3g}, {ms[k][0]:.4f} ms vs plain "
-        f"{ms[k][1]:.4f} ms" + (f" ({gbs[k]:.0f} GB/s)" if k in gbs else "")
+        f"{ms[k][1]:.4f} ms one launch at a time, {ms10[k][0]:.4f} vs "
+        f"{ms10[k][1]:.4f} ms queued"
+        + (f" ({gbs[k]:.0f} GB/s)" if k in gbs else "")
+        + f", bound {bounds[k][0]:.4f} ms"
+        + (f", one torch call {library[k]:.4f} ms" if k in library else "")
         for k in err) + f"; adc_quantize link mode bit-exact with "
         f"{outside} samples outside the range extrapolated, kernel mode "
         f"{ms_adc_kernel_mode[0]:.4f} ms vs plain {ms_adc_kernel_mode[1]:.4f}"
         f" ms, stochastic mean off by {bias / dither_sigma:.2f} sigma",
         flush=True)
-    del A, E, v, y, yr, codes, x, yk, xs, ys, q
+    del A, E, A2, v, y, yr, codes, x, yk, xs, ys, q, err["cmul_2pol"]
 
     # ---- phase 3: config 2, card vs CPU on the same noise, 2^20 samples ----
     spec = config2_spec(link)
@@ -582,10 +668,13 @@ def main() -> None:
     check(taps["gaussian"].size == 783 and taps["nrz"].size == 64, 8,
           f"DAC taps {[h.size for h in taps.values()]}, expected 783 and 64")
     err["fir_filter"] = 0.0
-    fir_ms = {}
+    fir_ms, fir_ms10 = {}, {}
+    rng8 = np.random.default_rng(0)
     for n, h in [(2**24, taps["gaussian"]), (2**24, taps["nrz"]),
                  (2**20 + 3, taps["gaussian"]),
-                 (100_003, np.random.default_rng(0).normal(size=4097))]:
+                 (100_003, rng8.normal(size=4097))] + [
+                     (2**20 + 3, rng8.normal(size=k))
+                     for k in (1, 7, 8, 9, kernels.FIR_MAX_TAPS)]:
         x = torch.randn(n, generator=g, device=dev)
         hh = torch.as_tensor(h, dtype=torch.float32, device=dev)
         y, yr = kernels.fir_filter(x, hh), kernels.fir_filter_ref(x, hh)
@@ -596,18 +685,46 @@ def main() -> None:
         err["fir_filter"] = max(err["fir_filter"], e)
         if n == 2**24:
             x64 = x.double()
-            fir_ms[h.size] = (
-                cuda_ms(torch, lambda: kernels.fir_filter(x, hh)),
-                cuda_ms(torch, lambda: kernels.fir_filter_ref(x, hh)),
-                cuda_ms(torch, lambda: pulses._fft_same(x64, h, h.size, 0)))
+            # the one PyTorch call for the same function: conv1d alone, on
+            # an input padded and taps flipped beforehand, TF32 off as in
+            # the plain version
+            xp = torch.nn.functional.pad(x.reshape(1, 1, -1), (h.size - 1, 0))
+            w = torch.flip(hh, (0,)).reshape(1, 1, -1)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            t_conv = cuda_ms(
+                torch, lambda: torch.nn.functional.conv1d(xp, w), inner=10)
+            torch.backends.cudnn.allow_tf32 = tf32
+            single, queued = timed(
+                torch, lambda: kernels.fir_filter(x, hh),
+                lambda: kernels.fir_filter_ref(x, hh),
+                lambda: pulses._fft_same(x64, h, h.size, 0))
+            fir_ms[h.size] = (*single, t_conv)
+            fir_ms10[h.size] = queued
+            del xp, w
         del x, y, yr
     del x64
-    ms["fir_filter"] = fir_ms[783][:2]
+    ms["fir_filter"], ms10["fir_filter"] = fir_ms[783][:2], fir_ms10[783][:2]
+    ms["fir_filter_64"], ms10["fir_filter_64"] = (fir_ms[64][:2],
+                                                  fir_ms10[64][:2])
+    library["fir_filter"], library["fir_filter_64"] = (fir_ms[783][3],
+                                                       fir_ms[64][3])
+    # 4 B read and 4 B written a sample and the taps once; one FMA (two
+    # operations) a sample and tap: the operations bound at 783 taps, the
+    # bytes at 64
+    bounds["fir_filter"] = bound_ms(8 * n24 + 4 * 783, 2 * 783 * n24)
+    bounds["fir_filter_64"] = bound_ms(8 * n24 + 4 * 64, 2 * 64 * n24)
     print("phase 8 fir_filter: ok max_abs_err " + f"{err['fir_filter']:.3g} "
           "(bound 1e-5 x max|y|); at 2^24 samples " + "; ".join(
-              f"{k} taps {t[0]:.4f} ms vs conv1d {t[1]:.4f} ms vs float64 "
-              f"FFT convolution {t[2]:.4f} ms ({k * 2**24 / t[0] / 1e9:.2f} "
-              "T FMA/s)" for k, t in fir_ms.items()), flush=True)
+              f"{k} taps {t[0]:.4f} ms vs plain (pad, flip, conv1d) "
+              f"{t[1]:.4f} ms vs float64 FFT convolution {t[2]:.4f} ms one "
+              f"launch at a time, {fir_ms10[k][0]:.4f} vs {fir_ms10[k][1]:.4f}"
+              f" vs {fir_ms10[k][2]:.4f} ms queued "
+              f"({k * 2**24 / fir_ms10[k][0] / 1e9:.2f} T FMA/s), conv1d "
+              f"alone {t[3]:.4f} ms" for k, t in fir_ms.items())
+          + f"; bound {bounds['fir_filter'][0]:.4f} ms at 783 taps "
+          f"({bounds['fir_filter'][1]}), {bounds['fir_filter_64'][0]:.4f} ms "
+          f"at 64 ({bounds['fir_filter_64'][1]})", flush=True)
 
     # ---- phase 9: the staged chain, card vs CPU on the same noise ----
     res = {}
@@ -665,13 +782,16 @@ def main() -> None:
           flush=True)
     print(f"phase 10 wall ms, first run: {fmt(d['walls'])}", flush=True)
     print(f"phase 10 wall ms, second run: {fmt(steady['walls'])}", flush=True)
-    keyed = staged_chain(torch, N_BITS, "cuda", gv_seed=11)
+    keyed = staged_chain(torch, N_BITS, None, gv_seed=11)  # no device named
+    check(keyed["device"] == "cuda", 10,
+          f"with no device named the chain ran on {keyed['device']}")
     from types import SimpleNamespace
     hold_to_pin(SimpleNamespace(eye=keyed["eye"], ber=keyed["ber"],
                                 threshold=keyed["threshold"]), pin, 10)
     check(keyed["n_steps"] == pin["n_steps"], 10,
           f"keyed n_steps {keyed['n_steps']}")
-    print(f"phase 10 staged chain, gv(seed=11) noise: ok BER {keyed['ber']}, "
+    print(f"phase 10 staged chain, gv(seed=11) noise, no device named (ran "
+          f"on {keyed['device']}): ok BER {keyed['ber']}, "
           f"threshold {keyed['threshold']:.7f}, mu0 {keyed['eye'].mu0:.6e} "
           f"mu1 {keyed['eye'].mu1:.6e} s0 {keyed['eye'].s0:.6e} s1 "
           f"{keyed['eye'].s1:.6e}", flush=True)
@@ -679,12 +799,24 @@ def main() -> None:
 
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged}
+    # a kernel's second shape: config 4's 2-pol cmul, the DAC's 64 nrz taps
+    also = {"cmul": ("cmul_2pol", "(2, 2^24) x 1-D 2^24"),
+            "fir_filter": ("fir_filter_64", "2^24 samples, 64 taps")}
+
+    def numbers(k):
+        return {"ms": ms10[k][0], "plain_ms": ms10[k][1],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                "library_ms": library.get(k),
+                "ms_one_launch": ms[k][0], "plain_ms_one_launch": ms[k][1]}
+
     print(json.dumps({"kernels": [
         {"name": k, "route": REPLACES[k][0], "source": REPLACES[k][1],
          "replaces": REPLACES[k][2],
          "launches": sum(p[k] for p in by_path.values()),
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
-         "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1]}
+         "max_abs_err": err[k], **numbers(k),
+         **({"also": {"shape": also[k][1], **numbers(also[k][0])}}
+            if k in also else {})}
         for k in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,7 +10,8 @@ by slice.  It holds two surfaces:
   metrology -> threshold -> BER;
 * the staged drop-in API of the reference: ``gv``, the signal classes,
   ``devices`` (``PRBS`` ... ``SAMPLER``) and ``ook`` (``DSP``,
-  ``BER_analizer``), on ``gv``'s device (``gv(device="cuda")``).
+  ``BER_analizer``), on ``gv``'s device (the card by default;
+  ``gv(device="cpu")`` asks for the CPU).
 
 Its pointwise split-step passes, the DAC's pulse shaping, its ADC and its
 receiver histogram are hand-written kernels

@@ -4,7 +4,7 @@ opticomlib/devices.py).
 
 Every device keeps the JAX package's call signature, validation, messages
 and physics; the waveforms are torch tensors.  Sources put their output on
-``gv``'s device (``gv(device="cuda")``, the CPU by default); every other
+``gv``'s device (the card unless ``gv(device="cpu")`` says otherwise); every other
 device computes on the device of its input.  ``execution_time`` on each
 result is the host wall time of the call, as in the reference's tic/toc;
 on a card the work may still be running when the call returns.

@@ -29,6 +29,8 @@ _P, _I, _LL, _F, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C entry points of each source: name -> argument types (all return int,
 #: a CUDA error code); every library also exports ``error_string``
 ENTRY_POINTS = {
+    "cmul": {
+        "cmul_launch": [_P, _P, _P, _LL, _LL, _I, _P]},
     "histogram2d": {
         "histogram2d_launch": [_P, _P, _LL, _I, _I, _P, _P, _P]},
     "adc_quantize": {

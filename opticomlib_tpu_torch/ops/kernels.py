@@ -7,7 +7,7 @@ This is the counterpart of ``opticomlib_tpu/ops/pallas_kernels.py``:
 wrapper       kernel                    replaces (TPU kernel)
 ============  ========================  ===============================
 nl_halfstep   Triton, triton_kernels    pallas_kernels._nl_kernel
-cmul          Triton, triton_kernels    pallas_kernels._cmul_kernel
+cmul          CUDA C++, csrc/*.cu       pallas_kernels._cmul_kernel
 histogram2d   CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
 adc_quantize  CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
 fir_filter    CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
@@ -110,7 +110,9 @@ def cmul_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def cmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Complex product ``A * B`` of complex64 tensors: ``B`` has ``A``'s
     shape, or is 1-D along ``A``'s last axis and broadcast over its leading
-    rows (a 2-pol field times one spectral factor)."""
+    rows (a 2-pol field times one spectral factor).  The kernel rounds as
+    ``A * B`` does on the card: ``re = fma(ar, br, -(ai*bi))``,
+    ``im = fma(ar, bi, ai*br)``."""
     _check(A, "A", torch.complex64)
     _check(B, "B", torch.complex64)
     if B.shape != A.shape and not (B.ndim == 1 and A.ndim >= 1
@@ -120,10 +122,19 @@ def cmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
             f"A's last axis; got {tuple(B.shape)}")
     if not _on_cuda(A, B):
         return cmul_ref(A, B)
-    from . import triton_kernels
+    from . import _build
+    lib = _build.load_library("cmul")
     C = torch.empty_like(A)
     if A.numel():
-        triton_kernels.launch_cmul(A, B, C)
+        ncol = A.shape[-1] if A.ndim else 1
+        with torch.cuda.device(A.device):
+            err = lib.cmul_launch(
+                ctypes.c_void_p(A.data_ptr()), ctypes.c_void_p(B.data_ptr()),
+                ctypes.c_void_p(C.data_ptr()),
+                ctypes.c_longlong(A.numel() // ncol), ctypes.c_longlong(ncol),
+                ctypes.c_int(int(B.shape != A.shape)),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(lib, err, "cmul")
         LAUNCHES["cmul"] += 1
     return C
 
@@ -279,7 +290,7 @@ def adc_quantize_link(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 # ---------------------------------------------------------------------------
 # causal FIR filter
 # ---------------------------------------------------------------------------
-#: most taps the ``fir_filter`` kernel takes (its window and taps fit one
+#: most taps the ``fir_filter`` kernel takes (two windows and the taps fit one
 #: CTA's shared memory; ``kMaxTaps`` in csrc/fir_filter.cu)
 FIR_MAX_TAPS = 8192
 

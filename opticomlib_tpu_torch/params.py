@@ -2,9 +2,11 @@
 ``gv`` facade of the staged devices (copied from ``opticomlib_tpu.params``,
 NumPy only).  The fused link takes explicit parameters; the staged devices
 read ``gv``, and the sources among them (``DAC``, ``LASER``, and signals
-built from host data) put their tensors on ``gv``'s device:
-``gv(device="cuda")``.  The default is the CPU; a CUDA device without a card
-raises, it never falls back to the CPU."""
+built from host data) put their tensors on ``gv``'s device.  The default is
+the card (``"cuda"``): a caller who names no device runs on it, and without
+a card the first source raises; there is no quiet run on the CPU.
+``gv(device="cpu")`` asks for the CPU, and has to be said again after
+``gv.default()``, which clears it."""
 from __future__ import annotations
 
 import dataclasses
@@ -203,7 +205,7 @@ class GlobalVariables:
     everything and deletes the extras, matching typing.py:361-386.  Two
     extras act: ``seed`` seeds the keyed-noise stream
     (:mod:`opticomlib_tpu_torch.rng`) and ``device`` is where the sources
-    put their tensors (checked when set).
+    put their tensors (checked when set; the card when not set).
     """
 
     _CORE = ("sps", "R", "fs", "dt", "wavelength", "f0", "N", "t", "w", "dw",
@@ -309,5 +311,14 @@ def resolve_params(params: Optional[SimParams]) -> SimParams:
 
 
 def current_device() -> torch.device:
-    """The device of ``gv`` (``gv(device=...)``; the CPU by default)."""
-    return check_device(gv._extras.get("device", "cpu"))
+    """The device of ``gv``: ``gv(device=...)``, else the card.  Raises when
+    that is a CUDA device and no card is available."""
+    if "device" in gv._extras:
+        return check_device(gv._extras["device"])
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gv names no device, so the staged devices run on the card "
+            "('cuda'), and no CUDA device is available "
+            "(torch.cuda.is_available() is False); ask for the CPU with "
+            "gv(device='cpu')")
+    return torch.device("cuda")

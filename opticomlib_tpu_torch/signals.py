@@ -5,8 +5,8 @@
 * :class:`ElectricalSignal` and :class:`OpticalSignal` are plain classes over
   torch tensors.  ``signal`` and ``noise`` live on one device: a tensor
   given to a constructor keeps its device, host data (NumPy arrays, lists,
-  scalars, strings) goes to ``gv``'s device (``gv(device="cuda")``; the
-  CPU by default).  Waveform-sized results stay tensors on that device;
+  scalars, strings) goes to ``gv``'s device (the card by default,
+  ``gv(device="cpu")`` for the CPU).  Waveform-sized results stay tensors on that device;
   reductions (``power``, ``mean``, ``std``) and ``to_numpy`` come back to
   the host.
 * "No noise" is the absorbing :data:`NULL` sentinel (reference

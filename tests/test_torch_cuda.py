@@ -36,7 +36,7 @@ def _field(shape, seed, device):
 
 
 @pytest.mark.parametrize("shape", [(2**20,), (2**20 + 5,), (2, 4099)])
-def test_triton_kernels_match_plain(cuda_device, shape):
+def test_kick_and_cmul_match_plain(cuda_device, shape):
     A = _field(shape, 1, cuda_device)
     E = _field(shape[-1:], 2, cuda_device)
     B, H = kernels.nl_halfstep(A, 0.05)
@@ -49,6 +49,31 @@ def test_triton_kernels_match_plain(cuda_device, shape):
                                **TOL)
     assert kernels.LAUNCHES["nl_halfstep"] == 1
     assert kernels.LAUNCHES["cmul"] == 2
+
+
+@pytest.mark.parametrize("shape,broadcast", [
+    ((2**20,), False), ((2**20 + 1,), False), ((1,), False), ((3,), False),
+    ((2, 2**20), True), ((2, 2**20), False), ((2, 4099), True),
+    ((2, 4100), True), ((5, 3, 1026), True), ((1024 * 4 * 2 + 2,), False)])
+@pytest.mark.parametrize("misalign", ["none", "A", "B", "all"])
+def test_cmul_kernel_bit_equal_to_plain(cuda_device, shape, broadcast,
+                                        misalign):
+    """Every path of the launcher (16-byte vectors, the odd last sample,
+    the scalar kernel for an odd row length under a broadcast and for views
+    8 bytes off a 16-byte boundary) gives the bits of ``A * B``: the kernel
+    rounds as torch's complex product does on the card."""
+    def make(sh, seed, off):
+        n = int(np.prod(sh))
+        buf = _field((n + 1,), seed, cuda_device)
+        return buf[off:off + n].reshape(sh)
+
+    A = make(shape, 3, misalign in ("A", "all"))
+    B = make(shape[-1:] if broadcast else shape, 4, misalign in ("B", "all"))
+    assert A.is_contiguous() and B.is_contiguous()
+    C = kernels.cmul(A, B)
+    torch.cuda.synchronize()
+    assert torch.equal(C, kernels.cmul_ref(A, B))
+    assert kernels.LAUNCHES["cmul"] == 1
 
 
 @pytest.mark.parametrize("n,nt,ny", [(2**20, 1, 4096), (2**20, 64, 256),
@@ -146,12 +171,13 @@ def test_adc_stochastic_statistics(cuda_device):
     assert not torch.equal(y[:65536], y[65536:131072])
 
 
-@pytest.mark.parametrize("n", [1, 5, 2047, 2048, 2049, 2**20 + 3])
-@pytest.mark.parametrize("taps", [1, 64, 783, kernels.FIR_MAX_TAPS])
+@pytest.mark.parametrize("n", [1, 5, 1023, 1024, 1025, 2048 + 4,
+                               2**20 + 3])
+@pytest.mark.parametrize("taps", [1, 7, 8, 9, 64, 783, kernels.FIR_MAX_TAPS])
 def test_fir_filter_matches_plain(cuda_device, n, taps):
     """Within 1e-5 of max|y| (float32 sums in another order than cuDNN's
-    full-float32 convolution); lengths around the 2048-output block, taps
-    longer than the input."""
+    full-float32 convolution); lengths around the 1024-output block, tap
+    counts around the 8-tap chunk, taps longer than the input."""
     g = torch.Generator(device=cuda_device).manual_seed(n + taps)
     x = torch.randn(n, generator=g, device=cuda_device)
     h = torch.randn(taps, generator=g, device=cuda_device)
@@ -159,6 +185,16 @@ def test_fir_filter_matches_plain(cuda_device, n, taps):
     torch.cuda.synchronize()
     assert float((y - yr).abs().max()) <= 1e-5 * float(yr.abs().max())
     assert kernels.LAUNCHES["fir_filter"] == 1
+
+
+def test_fir_filter_misaligned_views(cuda_device):
+    """Input and output views 4 bytes off a 16-byte boundary take the
+    element-wise staging and stores: the same bits as the aligned call."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(300 * 1024 + 8, generator=g, device=cuda_device)
+    h = torch.randn(100, generator=g, device=cuda_device)
+    want = kernels.fir_filter(x[1:].clone(), h)
+    assert torch.equal(kernels.fir_filter(x[1:], h), want)
 
 
 def test_fir_filter_delta_and_limits(cuda_device):

@@ -32,7 +32,9 @@ torch.set_num_threads(2)
 
 @pytest.fixture(autouse=True)
 def _reset():
+    """A fresh ``gv`` on the CPU (its default device is the card)."""
     tgv.default()
+    tgv.device = "cpu"
     trng.clear()
     yield
     tgv.default()

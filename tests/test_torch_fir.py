@@ -31,7 +31,8 @@ def _gauss783():
 
 
 @pytest.mark.parametrize("taps,n,block", [(7, 1000, 256), (33, 4096, 512),
-                                          (783, 5000, 1024)])
+                                          (783, 5000, 1024), (1, 600, 256),
+                                          (8, 1000, 256), (9, 1001, 256)])
 def test_fir_ref_matches_pallas_and_convolve(taps, n, block):
     rng = np.random.default_rng(taps)
     x = rng.normal(size=n).astype(np.float32)

@@ -4,7 +4,10 @@ JAX package's Pallas kernels (interpret mode on the CPU).
 On the CPU each wrapper computes its plain version; tests/test_torch_cuda.py
 holds the Hopper kernels to those plain versions on a card.  Tolerances:
 2e-5 as in tests/test_pallas.py (float32 cos/sin and products); histogram
-counts exact.
+counts exact.  ``cmul`` is held tighter where the test says so: the Pallas
+kernel, ``A * B`` on the CPU and the CUDA kernel's written-down rounding
+(``fma(ar, br, -(ai*bi))``, ``fma(ar, bi, ai*br)``) differ by one rounding
+of one product, 2^-24 of ``|ar*br| + |ai*bi|``.
 """
 import subprocess
 import sys
@@ -64,6 +67,48 @@ def test_cmul_broadcast_matches_pallas_per_row():
         np.testing.assert_allclose(C[r], ore + 1j * oim, **TOL)
 
 
+@pytest.mark.parametrize("shape,broadcast", [
+    ((4096,), False), ((5001,), False), ((2, 5000), True), ((2, 5001), True),
+    ((2, 5000), False), ((3, 2, 257), True), ((1,), False)])
+def test_cmul_wrapper_matches_pallas(shape, broadcast):
+    """Both shapes the wrapper takes, odd lengths included, through the
+    wrapper on CPU tensors, row by row against the Pallas kernel (interpret
+    mode): within one rounding of one product of the exact result."""
+    A = _field(shape, 9)
+    B = _field(shape[-1:] if broadcast else shape, 10)
+    C = kernels.cmul(torch.from_numpy(A), torch.from_numpy(B))
+    assert C.dtype == torch.complex64 and tuple(C.shape) == shape
+    assert kernels.LAUNCHES["cmul"] == 0  # CPU: the plain version
+    rows_a = A.reshape(-1, shape[-1])
+    rows_b = np.broadcast_to(B, shape).reshape(-1, shape[-1])
+    rows_c = C.numpy().reshape(-1, shape[-1])
+    for a, b, c in zip(rows_a, rows_b, rows_c):
+        ore, oim = (np.asarray(o) for o in pk.cmul(
+            a.real.copy(), a.imag.copy(), b.real.copy(), b.imag.copy()))
+        bound = 2.0**-23 * (np.abs(a.real * b.real) + np.abs(a.imag * b.imag)
+                            + np.abs(a.real * b.imag)
+                            + np.abs(a.imag * b.real)) + 1e-30
+        assert np.all(np.abs(c - (ore + 1j * oim)) <= bound)
+        exact = a.astype(np.complex128) * b.astype(np.complex128)
+        assert np.all(np.abs(c - exact) <= bound)
+
+
+def test_cmul_written_rounding_is_within_one_product_rounding():
+    """The CUDA kernel's arithmetic, emulated in NumPy (each product and
+    each fma rounded to float32 once), against ``cmul_ref`` on the CPU."""
+    A, B = _field(5000, 11), _field(5000, 12)
+    ar, ai, br, bi = (x.astype(np.float64) for x in (A.real, A.imag, B.real,
+                                                     B.imag))
+    f32 = lambda x: x.astype(np.float32).astype(np.float64)
+    # a float64 product of two float32 is exact, so one cast is one rounding
+    re = f32(ar * br - f32(ai * bi))
+    im = f32(ar * bi + f32(ai * br))
+    ref = kernels.cmul_ref(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    bound = 2.0**-23 * (np.abs(ar * br) + np.abs(ai * bi) + np.abs(ar * bi)
+                        + np.abs(ai * br))
+    assert np.all(np.abs(ref - (re + 1j * im)) <= bound)
+
+
 @pytest.mark.parametrize("n,nt,ny", [(4096, 1, 4096), (5000, 8, 64)])
 def test_histogram2d_ref_matches_pallas(n, nt, ny):
     rng = np.random.default_rng(6)
@@ -110,6 +155,17 @@ def test_wrappers_take_plain_path_on_cpu():
                          torch.zeros(3, dtype=torch.complex64)),   # shape
     lambda: kernels.cmul(torch.zeros((2, 8), dtype=torch.complex64)[:, ::2],
                          torch.zeros(4, dtype=torch.complex64)),   # layout
+    lambda: kernels.cmul(torch.zeros(4, dtype=torch.complex64),
+                         torch.zeros(4, dtype=torch.complex128)),  # dtype
+    lambda: kernels.cmul(torch.zeros(4, dtype=torch.complex64),
+                         torch.zeros(4)),                          # dtype
+    lambda: kernels.cmul(torch.zeros((2, 4), dtype=torch.complex64),
+                         torch.zeros((1, 4), dtype=torch.complex64)),  # 2-D
+    lambda: kernels.cmul(torch.zeros((2, 4), dtype=torch.complex64),
+                         torch.zeros(2, dtype=torch.complex64)),   # axis
+    lambda: kernels.cmul(torch.zeros(4, dtype=torch.complex64),
+                         torch.zeros(4, dtype=torch.complex64,
+                                     device="meta")),              # devices
     lambda: kernels.histogram2d(torch.zeros(4, dtype=torch.int64),
                                 torch.zeros(4, dtype=torch.int64), 1, 4),
     lambda: kernels.histogram2d(torch.zeros(4, dtype=torch.int32),

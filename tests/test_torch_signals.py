@@ -22,7 +22,9 @@ RTOL = 1e-12
 
 @pytest.fixture(autouse=True)
 def _reset():
+    """A fresh ``gv`` on the CPU (its default device is the card)."""
     gv.default()
+    gv.device = "cpu"
     rng.clear()
     yield
     gv.default()
@@ -270,6 +272,8 @@ def test_gv_facade_matches_jax():
 
 def test_gv_device(monkeypatch):
     assert ts.ElectricalSignal(np.ones(3)).device.type == "cpu"
+    gv.default()  # clears the device with the other extras
+    assert not hasattr(gv, "device")
     gv(device="cpu")
     assert LASER(0).device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -278,6 +282,26 @@ def test_gv_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gv.device = "cuda:0"
     assert gv.device == "cpu"
+
+
+def test_no_device_named_means_the_card(monkeypatch):
+    """With no device named the sources run on the card; without one the
+    first source call raises and names ``device='cpu'``: no quiet CPU run."""
+    from opticomlib_tpu_torch.devices import DAC, PRBS
+    from opticomlib_tpu_torch.params import current_device
+    gv.default()
+    gv(sps=8, R=1e9, N=16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert current_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tx = PRBS(order=7, len=16)  # host bits: no device yet
+    for source in (lambda: LASER(0), lambda: DAC(tx, Vpp=1),
+                   lambda: ts.ElectricalSignal(np.ones(3))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            source()
+    gv(device="cpu")
+    assert LASER(0).device.type == "cpu"
+    assert DAC(tx, Vpp=1).device.type == "cpu"
 
 
 def test_gv_from_jax_and_signal_from_jax():
@@ -319,6 +343,25 @@ def test_rng_stream():
     assert not rng.is_seeded()
     with pytest.raises(RuntimeError, match="not seeded"):
         rng.next_key()
+
+
+@pytest.mark.parametrize("threads", [1, 2, 4])
+def test_keyed_laser_bit_equal_across_repeats_and_threads(threads):
+    """One seed, one waveform, bit for bit: over repeated calls, with the
+    key given as an int or as a generator, and whatever the number of intra-op
+    threads (``exp`` and ``sqrt`` split these 4096 samples over two threads,
+    the draws and the walk run on one)."""
+    gv(sps=16, R=10e9, N=2**8)
+    want = LASER(5, lw=1e6, rin=-140, key=7).to_numpy()
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for i in range(25):
+            key = 7 if i % 2 else torch.Generator().manual_seed(7)
+            np.testing.assert_array_equal(
+                LASER(5, lw=1e6, rin=-140, key=key).to_numpy(), want)
+    finally:
+        torch.set_num_threads(before)
 
 
 def test_keyed_devices_reproducible():

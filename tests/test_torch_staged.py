@@ -34,7 +34,9 @@ LEVELS = ("mu0", "mu1", "s0", "s1")
 
 @pytest.fixture(autouse=True)
 def _reset():
+    """A fresh ``gv`` on the CPU (its default device is the card)."""
     T.gv.default()
+    T.gv.device = "cpu"
     yield
     T.gv.default()
 
