@@ -1,11 +1,13 @@
-"""The fused OOK link on torch: bits -> DAC -> laser + MZM/PM -> fiber /
+"""The fused link on torch: bits -> DAC -> laser + MZM/PM -> fiber /
 EDFA / DBP / DM / BPF stages -> photodiode -> Bessel LPF -> optional ADC ->
-slot samples, and the receiver (eye metrology -> threshold -> slicer ->
-error count).
+slot samples, and the receivers on the device: OOK (eye metrology ->
+threshold -> slicer -> error count), M-PPM soft and hard, and both as WDM
+sweeps over independent channels.
 
 Port of ``opticomlib_tpu.link`` (``LinkSpec``, the stage specs,
-``build_link``, ``LinkProgram.fn`` / ``run`` / ``dsp``).  The physics and
-the order of operations are the JAX program's; what differs:
+``build_link``, ``LinkProgram.fn`` / ``run`` / ``eye`` / ``dsp`` /
+``dsp_ppm`` / ``dsp_wdm`` / ``dsp_wdm_ppm``).  The physics and the order of
+operations are the JAX program's; what differs:
 
 * ``LinkProgram`` is an ``nn.Module`` whose spectral constants (``Hp``,
   ``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``, ``df_phase``) are
@@ -18,9 +20,16 @@ the order of operations are the JAX program's; what differs:
   in the JAX key-stream order: ``"phase"`` and ``"rin"`` ``(n,)`` (laser),
   ``"ase"`` one ``(4, n)`` array per noisy EDFA in the order the EDFAs
   run (``RepeatSpec`` spans unrolled), ``"thermal"`` and ``"shot"``
-  ``(n,)``.
+  ``(n,)``, and for the hard PPM receiver ``"hdd"``, the ``(n_sym, M)``
+  uniform draws of its symbol repair.  A sweep takes a list of such dicts,
+  one a channel.
 * The program runs eagerly: ``RepeatSpec`` is a Python loop over its spans,
   and the adaptive fiber loops sync with the host once per step.
+* A WDM sweep runs the chain one channel at a time (channel ``c`` is the
+  chain of ``seed + c``, with its own step count), keeps each channel's
+  receiver window, and runs the receivers on the stacked windows: the KDE
+  histograms of all channels are one kernel launch.  ``mesh=`` (channels
+  over several cards) is not ported yet.
 
 Typical use::
 
@@ -49,7 +58,10 @@ from scipy.constants import e, k as kB, pi
 
 from .eyediag import Eye
 from .ops import filters, kernels, pulses, ssfm
-from .ops.eyeana import _shortest_int_masked, eye_metrics, linspace
+from .models.ppm import (PPM_ENCODER, hdd_positions, positions_to_bits,
+                         sdd_positions)
+from .ops.eyeana import (_shortest_int_masked, eye_metrics, eye_window,
+                         linspace)
 from .ops.noise import ase_sigma, gaussian, wiener_phase
 from .ops.prbs import prbs
 from .params import SimParams
@@ -62,14 +74,17 @@ _EYE_TRACE_KEYS = ("y", "t", "y_top", "y_bot", "y_25_75")
 f32 = np.float32
 
 
-def _warn_rin():
+def _warn_rin(bad_channels=None):
     """The RuntimeWarning for a clamped RIN draw (``rin_ok`` False): the
     program clamps ``1 + rin`` at 0 where the staged LASER, like the
-    reference (devices.py:492-500), raises."""
+    reference (devices.py:492-500), raises.  ``bad_channels``: the channel
+    indices, for the sweeps."""
+    where = ("" if bad_channels is None
+             else f" on channel(s) {list(bad_channels)}")
     warnings.warn(
-        "RIN draw crossed -1 and was clamped to dark (the staged LASER "
-        "raises here, reference devices.py:492-500); decrease `rin` or "
-        "change the seed.", RuntimeWarning, stacklevel=3)
+        f"RIN draw crossed -1 and was clamped to dark{where} (the staged "
+        "LASER raises here, reference devices.py:492-500); decrease `rin` "
+        "or change the seed.", RuntimeWarning, stacklevel=3)
 
 
 def _adc_quantize(v: torch.Tensor, bits: int) -> torch.Tensor:
@@ -336,20 +351,78 @@ def _promote_2pol(f: torch.Tensor) -> torch.Tensor:
     return torch.stack([f, torch.zeros_like(f)]) if f.ndim == 1 else f
 
 
-def _ook_rx_ingraph(v, slots, bits_f32, sps, nslots, sps_resamp):
-    """OOK receiver on the device: eye metrology -> THRESHOLD_EST (the
-    1000-point scan of ``0.5*[Q((mu1-r)/s1) + Q((r-mu0)/s0)]``, in log space
-    so high-SNR tails do not underflow to a flat zero) -> slicer -> error
-    count (reference ook.py:22-60, 63-132, 135-218)."""
+def _eye_scalars(v, sps, nslots, sps_resamp):
+    """``eye_metrics`` without its traces."""
     m = eye_metrics(v, sps=sps, nslots=nslots, sps_resamp=sps_resamp)
     for k in _EYE_TRACE_KEYS:
         m.pop(k, None)
+    return m
+
+
+def _ook_decide(m, slots, bits_f32):
+    """THRESHOLD_EST (the 1000-point scan of ``0.5*[Q((mu1-r)/s1) +
+    Q((r-mu0)/s0)]``, in log space so high-SNR tails do not underflow to a
+    flat zero) -> slicer -> error count, from one channel's eye scalars
+    (reference ook.py:22-60, 135-218)."""
     r = linspace(m["mu0"], m["mu1"], 1000)
     lq1 = torch.special.log_ndtr(-(m["mu1"] - r) / m["s1"])
     lq0 = torch.special.log_ndtr(-(r - m["mu0"]) / m["s0"])
     rth = r[torch.argmin(torch.logaddexp(lq1, lq0))]
     n_err = ((slots > rth) != (bits_f32 > 0.5)).sum()
-    return m, rth, n_err
+    return rth, n_err
+
+
+def _ook_rx_ingraph(v, slots, bits_f32, sps, nslots, sps_resamp):
+    """OOK receiver on the device: eye metrology -> :func:`_ook_decide`
+    (reference ook.py:63-132)."""
+    m = _eye_scalars(v, sps, nslots, sps_resamp)
+    return (m,) + _ook_decide(m, slots, bits_f32)
+
+
+def _ppm_hard_decide(m, slot_samp, info_bits, M, uniform):
+    """KDE threshold (falling back to the log-space M-PPM THRESHOLD_EST
+    scan, reference ppm.py:261-305, where the KDE fails) -> slicer -> HDD
+    repair scored by ``uniform`` -> decode -> error count, from one
+    channel's eye scalars (reference ppm.py:390-405, 419-577)."""
+    # argmin 1 - Q((r-mu1)/s1) * (1-Q((r-mu0)/s0))^(M-1) == argmax
+    # log Q((r-mu1)/s1) + (M-1) log(1-Q((r-mu0)/s0)), log Q(x) = log_ndtr(-x)
+    r = linspace(m["mu0"], m["mu1"], 1000)
+    log_a = (torch.special.log_ndtr((m["mu1"] - r) / m["s1"])
+             + (M - 1) * torch.special.log_ndtr((r - m["mu0"]) / m["s0"]))
+    rth_scan = r[torch.argmax(log_a)]
+    rth = torch.where(torch.isnan(m["threshold"]), rth_scan, m["threshold"])
+    on = (slot_samp > rth).to(torch.float32)
+    rx_bits = positions_to_bits(hdd_positions(on, M, uniform), M)
+    return rth, (rx_bits != info_bits.to(torch.uint8)).sum()
+
+
+def _ppm_hard_rx_ingraph(v, slot_samp, info_bits, M, sps, nslots,
+                         sps_resamp, uniform):
+    """Hard-decision M-PPM receiver on the device: eye metrology ->
+    :func:`_ppm_hard_decide`.  Returns ``(eye_scalars, rth, n_err)``."""
+    m = _eye_scalars(v, sps, nslots, sps_resamp)
+    return (m,) + _ppm_hard_decide(m, slot_samp, info_bits, M, uniform)
+
+
+def _ppm_soft_errors(slot_samp, info_bits, M):
+    rx_bits = positions_to_bits(sdd_positions(slot_samp, M), M)
+    return (rx_bits != info_bits.to(torch.uint8)).sum()
+
+
+def _eye_to_host(m: dict, dt: float) -> Eye:
+    """Eye metrics as an :class:`Eye`: 0-d tensors as Python numbers, the
+    traces (when present) left as tensors on their device, other tensors as
+    NumPy arrays; NaN ``threshold``/``y_left``/``y_right`` as ``None``."""
+    res = {}
+    for k, val in m.items():
+        if isinstance(val, torch.Tensor) and k not in _EYE_TRACE_KEYS:
+            val = val.item() if val.ndim == 0 else val.cpu().numpy()
+        res[k] = val
+    for k in ("threshold", "y_left", "y_right"):
+        if res.get(k) is not None and np.isnan(res[k]):
+            res[k] = None
+    res["dt"] = dt
+    return Eye(res)
 
 
 # ---------------------------------------------------------------------------
@@ -655,17 +728,261 @@ class LinkProgram(torch.nn.Module):
         m, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
                                         self.params.sps, nslots, sps_resamp)
         rin_ok = _rin_ok(out[-1])
-        res = {k: ((val.item() if val.ndim == 0 else val.cpu().numpy())
-                   if isinstance(val, torch.Tensor) else val)
-               for k, val in m.items()}
-        for k in ("threshold", "y_left", "y_right"):
-            if res.get(k) is not None and np.isnan(res[k]):
-                res[k] = None
-        res["dt"] = 1.0 / self.params.fs
         n_err = int(n_err.item())
         return SimpleNamespace(ber=n_err / self.n_bits, n_errors=n_err,
-                               threshold=float(rth.item()), eye=Eye(res),
+                               threshold=float(rth.item()),
+                               eye=_eye_to_host(m, 1.0 / self.params.fs),
                                tx=tx, n_steps=out[2], rin_ok=rin_ok)
+
+    @torch.no_grad()
+    def eye(self, bits=None, seed: int = 0, prbs_order: int = 9,
+            nslots: int = 8192, sps_resamp: Optional[int] = None,
+            with_traces: bool = False, noise: Optional[dict] = None):
+        """Chain -> GET_EYE: the blind eye estimation (reference
+        devices.py:1635-1868) runs on the photodiode voltage where it lies,
+        and only the scalar eye parameters (mu0/mu1/s0/s1, crossings, t_opt,
+        threshold, ER, eye height) are read back.  ``with_traces=True`` also
+        returns the rendering traces ``t``/``y``/``y_top``/``y_bot``/
+        ``y_25_75`` as tensors on the program's device (``Eye.density``
+        bins them there)."""
+        _, bits_f32 = self._bits(bits, prbs_order)
+        out = self(bits_f32, seed=seed, noise=noise)
+        m = (eye_metrics if with_traces else _eye_scalars)(
+            out[0], self.params.sps, nslots, sps_resamp)
+        _rin_ok(out[-1])
+        return _eye_to_host(m, 1.0 / self.params.fs)
+
+    # ---- M-PPM ----
+    def _ppm_shape(self, M: int, decision: str):
+        """Validated ``(decision, bits a symbol, symbols)`` of an M-PPM
+        receiver on this program's slots."""
+        decision = decision.lower()
+        if decision not in ("soft", "hard"):
+            raise ValueError('`decision` must be "hard" or "soft"')
+        if M & (M - 1) != 0 or M < 2:
+            raise ValueError("`M` must be a power of 2.")
+        if self.n_bits % M != 0:
+            raise ValueError(
+                f"link carries {self.n_bits} slots, not a multiple of M={M}")
+        return decision, int(math.log2(M)), self.n_bits // M
+
+    def _hdd_uniform(self, seed: int, n_sym: int, M: int, noise):
+        """The ``(n_sym, M)`` uniform scores of the HDD symbol repair:
+        ``noise["hdd"]`` where given, else drawn from a generator keyed by
+        the link seed (its own stream, so the chain's draws do not move)."""
+        if noise is not None and "hdd" in noise:
+            u = noise["hdd"]
+            if not isinstance(u, torch.Tensor):
+                u = torch.from_numpy(np.array(u, dtype=np.float32))
+            return u.to(device=self.device, dtype=torch.float32).reshape(
+                n_sym, M)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed) * 2**16 + 0x504D)
+        return torch.rand((n_sym, M), generator=gen, device=self.device,
+                          dtype=torch.float32)
+
+    @torch.no_grad()
+    def dsp_ppm(self, M: int, decision: str = "soft", bits=None,
+                seed: int = 0, prbs_order: int = 15, nslots: int = 8192,
+                sps_resamp: Optional[int] = None,
+                noise: Optional[dict] = None):
+        """M-PPM receiver on the device: chain -> decision -> decode -> BER
+        (twin of ``models.ppm.DSP`` + ``BER_analizer('counter')``, reference
+        ppm.py:309-415, 419-577).
+
+        The link's input sequence is the M-slot one-hot stream (so the
+        program is built with ``n_bits = n_symbols * M`` slots); ``bits``
+        here are the *information* bits (``n_symbols * log2(M)`` of them,
+        PRBS by default), encoded once on the host with ``PPM_ENCODER``.
+
+        * ``decision="soft"``: mid-slot subsample -> per-symbol argmax
+          (:func:`~opticomlib_tpu_torch.models.ppm.sdd_positions`).
+        * ``decision="hard"``: eye metrology -> KDE threshold (falling back
+          to the M-PPM log-space THRESHOLD_EST scan where the KDE fails) ->
+          slicer -> HDD repair
+          (:func:`~opticomlib_tpu_torch.models.ppm.hdd_positions`): the
+          reference's ``np.random`` symbol repair becomes a uniform score a
+          slot, ``noise["hdd"]`` or a draw keyed by ``seed``.
+
+        Only ``n_errors``, the threshold and the eye scalars are read
+        back."""
+        decision, k, n_sym = self._ppm_shape(M, decision)
+        if bits is None:
+            bits = prbs(prbs_order, length=n_sym * k)[0]
+        tx = np.asarray(bits).reshape(-1).astype(np.uint8)
+        if tx.size != n_sym * k:
+            raise ValueError(
+                f"need {n_sym * k} information bits for {n_sym} symbols "
+                f"of M={M}, got {tx.size}")
+        slots_tx = PPM_ENCODER(tx, M)
+        info = torch.as_tensor(tx, device=self.device)
+        out = self(torch.as_tensor(slots_tx.data.astype(np.float32),
+                                   device=self.device), seed=seed,
+                   noise=noise)
+        eye_obj, rth = None, None
+        if decision == "soft":
+            n_err = _ppm_soft_errors(out[1], info, M)
+        else:
+            m, rth, n_err = _ppm_hard_rx_ingraph(
+                out[0], out[1], info, M, self.params.sps, nslots, sps_resamp,
+                self._hdd_uniform(seed, n_sym, M, noise))
+            eye_obj = _eye_to_host(m, 1.0 / self.params.fs)
+            rth = float(rth.item())
+        rin_ok = _rin_ok(out[-1])
+        n_err = int(n_err.item())
+        return SimpleNamespace(
+            ber=n_err / tx.size, n_errors=n_err,
+            threshold=(None if rth is None or np.isnan(rth) else rth),
+            eye=eye_obj, tx=tx, slots_tx=slots_tx, M=M, decision=decision,
+            n_steps=out[2], rin_ok=rin_ok)
+
+    # ---- WDM sweeps ----
+    def _sweep(self, inputs, seed: int, noise, nslots: int, mesh):
+        """Run the chain on each row of ``inputs`` (channel ``c`` with
+        ``seed + c`` and ``noise[c]``), one channel at a time so the memory
+        is one channel's, and keep what the receivers need: the eye window
+        of ``v`` and the slot samples, stacked ``(C, ...)``, the step counts
+        and the ``rin_ok`` flags ``(C,)``."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (the channel axis over several cards) belongs to the "
+                "parallel links, which are not ported yet; run the sweep on "
+                "one card with mesh=None")
+        if noise is not None and len(noise) != len(inputs):
+            raise ValueError(
+                f"noise must be a list of {len(inputs)} per-channel dicts")
+        w = eye_window(self.n, self.params.sps, nslots)
+        wins, slots, steps, flags = [], [], [], []
+        for c, row in enumerate(inputs):
+            out = self(torch.as_tensor(row, dtype=torch.float32,
+                                       device=self.device), seed=seed + c,
+                       noise=None if noise is None else noise[c])
+            # copies: a view would keep the channel's whole waveform alive
+            wins.append(out[0][:w].clone())
+            slots.append(out[1].clone())
+            steps.append(out[2])
+            flags.append(out[-1])
+        return (torch.stack(wins), torch.stack(slots), steps,
+                torch.stack(flags))
+
+    @torch.no_grad()
+    def dsp_wdm(self, n_channels: int, bits=None, seed: int = 0,
+                prbs_order: int = 15, nslots: int = 8192,
+                sps_resamp: Optional[int] = None, mesh=None,
+                axis: str = "wdm", noise: Optional[list] = None):
+        """WDM sweep with per-channel receivers: ``n_channels`` independent
+        TX->RX chains + OOK DSP (BASELINE config 5).
+
+        Channel ``c`` runs the chain with its own bits (row ``c`` of
+        ``bits``, default: consecutive PRBS segments) and its own noise
+        stream (``seed + c``: what ``prog.dsp(seed=seed + c)`` sees, with
+        that call's step count).  The receiver is :meth:`dsp`'s, on the
+        stacked eye windows: the KDE histograms of all channels are one
+        kernel launch, and the results come back as ``(n_channels,)``
+        vectors in one read-back.  ``noise``: a list of per-channel draw
+        dicts.  ``mesh``/``axis`` (channels over several cards) are not
+        ported yet: a ``mesh`` raises ``NotImplementedError``."""
+        if n_channels < 1:
+            raise ValueError("n_channels must be >= 1")
+        if bits is None:
+            bits = prbs(prbs_order, length=n_channels * self.n_bits)[0]
+            bits = bits.reshape(n_channels, self.n_bits)
+        bits = np.asarray(bits)
+        if bits.shape != (n_channels, self.n_bits):
+            raise ValueError(
+                f"bits must have shape {(n_channels, self.n_bits)}, "
+                f"got {bits.shape}")
+        wins, slots, steps, flags = self._sweep(bits, seed, noise, nslots,
+                                                mesh)
+        m = _eye_scalars(wins, self.params.sps, nslots, sps_resamp)
+        keys = ("mu0", "mu1", "s0", "s1", "er", "eye_h")
+        rows = []
+        for c in range(n_channels):
+            m_c = {k: m[k][c] for k in ("mu0", "mu1", "s0", "s1")}
+            rth, n_err = _ook_decide(
+                m_c, slots[c], torch.as_tensor(
+                    bits[c].astype(np.float32), device=self.device))
+            rows.append(torch.stack(
+                [m[k][c].to(torch.float64) for k in keys]
+                + [rth.to(torch.float64), n_err.to(torch.float64),
+                   flags[c].to(torch.float64)]))
+        host = torch.stack(rows).cpu().numpy()  # the one read-back
+        res = dict(zip(keys, host[:, :6].T.astype(np.float32)))
+        n_err = host[:, 7].astype(np.int64)
+        rin_ok = host[:, 8] > 0
+        if not rin_ok.all():
+            _warn_rin(np.flatnonzero(~rin_ok).tolist())
+        return SimpleNamespace(
+            ber=n_err / self.n_bits, n_errors=n_err,
+            threshold=host[:, 6].astype(np.float32), **res,
+            n_channels=n_channels, tx=bits.astype(np.uint8),
+            n_steps=steps, rin_ok=rin_ok)
+
+    @torch.no_grad()
+    def dsp_wdm_ppm(self, n_channels: int, M: int, decision: str = "soft",
+                    bits=None, seed: int = 0, prbs_order: int = 15,
+                    mesh=None, axis: str = "wdm", nslots: int = 8192,
+                    sps_resamp: Optional[int] = None,
+                    noise: Optional[list] = None):
+        """M-PPM WDM sweep: ``n_channels`` independent chains + PPM
+        receivers, the PPM twin of :meth:`dsp_wdm`.
+
+        * ``decision="soft"``: SDD argmax decision + decode + BER.
+        * ``decision="hard"``: per-channel eye metrology on the stacked eye
+          windows (one KDE histogram launch) -> KDE/scan threshold ->
+          slicer -> HDD repair -> decode + BER (:meth:`dsp_ppm`'s
+          receiver; ``nslots``/``sps_resamp`` size the eye window).
+
+        ``bits``: (n_channels, n_sym*log2(M)) *information* bits (PRBS
+        segments by default), encoded once on the host with
+        ``PPM_ENCODER``.  Channel ``c`` uses the noise stream ``seed + c``
+        (``noise``: a list of per-channel draw dicts).  A ``mesh`` raises
+        ``NotImplementedError`` like :meth:`dsp_wdm`."""
+        if n_channels < 1:
+            raise ValueError("n_channels must be >= 1")
+        decision, k, n_sym = self._ppm_shape(M, decision)
+        if bits is None:
+            bits = prbs(prbs_order, length=n_channels * n_sym * k)[0]
+            bits = bits.reshape(n_channels, n_sym * k)
+        bits = np.asarray(bits)
+        if bits.shape != (n_channels, n_sym * k):
+            raise ValueError(
+                f"bits must have shape {(n_channels, n_sym * k)}, got "
+                f"{bits.shape}")
+        bits = bits.astype(np.uint8)
+        slots_tx = np.stack([PPM_ENCODER(bits[c], M).data.astype(np.float32)
+                             for c in range(n_channels)])
+        wins, slots, steps, flags = self._sweep(slots_tx, seed, noise,
+                                                nslots, mesh)
+        info = torch.as_tensor(bits, device=self.device)
+        if decision == "hard":
+            m = _eye_scalars(wins, self.params.sps, nslots, sps_resamp)
+        rows = []
+        for c in range(n_channels):
+            if decision == "soft":
+                rth = torch.full((), torch.nan, device=self.device)
+                n_err = _ppm_soft_errors(slots[c], info[c], M)
+            else:
+                m_c = {key: m[key][c]
+                       for key in ("mu0", "mu1", "s0", "s1", "threshold")}
+                rth, n_err = _ppm_hard_decide(
+                    m_c, slots[c], info[c], M, self._hdd_uniform(
+                        seed + c, n_sym, M,
+                        None if noise is None else noise[c]))
+            rows.append(torch.stack([rth.to(torch.float64),
+                                     n_err.to(torch.float64),
+                                     flags[c].to(torch.float64)]))
+        host = torch.stack(rows).cpu().numpy()  # the one read-back
+        n_err = host[:, 1].astype(np.int64)
+        rin_ok = host[:, 2] > 0
+        if not rin_ok.all():
+            _warn_rin(np.flatnonzero(~rin_ok).tolist())
+        rth = host[:, 0]
+        return SimpleNamespace(
+            rin_ok=rin_ok, ber=n_err / (n_sym * k), n_errors=n_err, M=M,
+            decision=decision, n_channels=n_channels,
+            threshold=(None if np.isnan(rth).all() else rth),
+            n_steps=steps, tx=bits)
 
 
 def _rin_ok(flag: torch.Tensor) -> bool:

@@ -26,19 +26,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _LL, _F, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float, ctypes.c_ulonglong)
-#: C entry points of each source: name -> argument types (all return int,
-#: a CUDA error code); every library also exports ``error_string``
+#: C entry points of each source: name -> argument types (each returns int,
+#: a CUDA error code, unless :data:`RESTYPES` names another type); every
+#: library also exports ``error_string``
 ENTRY_POINTS = {
     "cmul": {
         "cmul_launch": [_P, _P, _P, _LL, _LL, _I, _P]},
     "histogram2d": {
-        "histogram2d_launch": [_P, _P, _LL, _I, _I, _P, _P, _P]},
+        "histogram_scratch_len": [_I, _I, _I],
+        "histogram_rows_launch": [_P, _I, _LL, _I, _P, _LL, _P, _I, _P],
+        "histogram2d_launch": [_P, _P, _LL, _I, _I, _P, _LL, _P, _I, _P]},
     "adc_quantize": {
         "adc_kernel_launch": [_P, _P, _LL, _F, _F, _I, _I, _ULL, _P],
         "adc_link_launch": [_P, _P, _LL, _P, _P, _F, _P]},
     "fir_filter": {
         "fir_launch": [_P, _P, _P, _LL, _I, _P]},
 }
+RESTYPES = {"histogram_scratch_len": _LL}
 
 
 def _nvcc() -> str:
@@ -106,7 +110,7 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build([name])[name]))
     for fn, argtypes in ENTRY_POINTS[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib

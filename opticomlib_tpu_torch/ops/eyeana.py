@@ -5,9 +5,14 @@ devices.py:1635-1868).
 Every stage is a tensor reduction with static shapes: subsets (level split,
 crossing band, centre window) are boolean masks, dynamic-size sorts are full
 sorts with +inf padding, and the KDE threshold is a fixed 4096-bin histogram
-(:func:`opticomlib_tpu_torch.ops.kernels.histogram2d`) contracted against a
-Gaussian kernel matrix.  Nothing here reads back to the host, so the whole
+(:func:`opticomlib_tpu_torch.ops.kernels.histogram_rows`) contracted against
+a Gaussian kernel matrix.  Nothing here reads back to the host, so the whole
 receiver queues behind the link on the card.
+
+A ``(C, n)`` input is ``C`` independent channels (the JAX package's ``vmap``
+over ``eye_metrics_jax``): stages 1-6 run channel by channel on the rows, so
+a row gives exactly what the 1-D call gives, and the KDE histograms of all
+channels are one ``(C, 4096)`` kernel launch.
 
 Integer sums that JAX keeps in int32 come out of torch as int64; where the
 value feeds float arithmetic the port converts explicitly so the float32
@@ -23,7 +28,7 @@ import torch
 from . import kernels
 from .pulses import resample_fft
 
-__all__ = ["eye_metrics", "linspace"]
+__all__ = ["eye_metrics", "eye_window", "shortest_int_hist", "linspace"]
 
 #: relative flatness tolerance of the KDE plateau diagnostic (same value as
 #: ``opticomlib_tpu.ops.eyeana.PLATEAU_TOL``)
@@ -135,45 +140,107 @@ def _kmeans2_2d(t, y, mask, init, iters: int = 32):
     return centers
 
 
-def _kde_min_threshold(y, mask, mu0, mu1, npts: int = 500,
-                       nbins: int = 4096):
-    """Scott's-rule Gaussian KDE over the masked window, on an ``npts`` grid
-    between the two levels, via a histogram contraction.  Returns
-    ``(threshold, plateau_width)``.  The (npts x nbins) contraction is an
-    elementwise product and a sum in full float32, so no TF32 matrix path
-    (about three digits) can reach the density."""
-    n_win = mask.sum()
-    bw = _masked_std(y, mask) * torch.clamp(n_win, min=1).to(
-        torch.float32) ** (-1 / 5)
-    y_lo = torch.where(mask, y, torch.inf).min()
-    y_hi = torch.where(mask, y, -torch.inf).max()
-    lo = torch.minimum(y_lo, torch.minimum(mu0, mu1)) - 5 * bw
-    hi = torch.maximum(y_hi, torch.maximum(mu0, mu1)) + 5 * bw
-    width = torch.clamp(hi - lo, min=_TINY)
+def _kde_min_thresholds(chans, npts: int = 500, nbins: int = 4096):
+    """Scott's-rule Gaussian KDE over each channel's masked window, on an
+    ``npts`` grid between its two levels, via a histogram contraction.
+    ``chans``: a list of ``(y, mask, mu0, mu1)`` with 1-D ``y`` of one
+    length; the histograms of all channels are one ``(C, nbins)`` launch.
+    Returns a list of ``(threshold, plateau_width)``.  The (npts x nbins)
+    contraction is an elementwise product and a sum in full float32, so no
+    TF32 matrix path (about three digits) can reach the density."""
+    prep = []
+    for y, mask, mu0, mu1 in chans:
+        n_win = mask.sum()
+        bw = _masked_std(y, mask) * torch.clamp(n_win, min=1).to(
+            torch.float32) ** (-1 / 5)
+        y_lo = torch.where(mask, y, torch.inf).min()
+        y_hi = torch.where(mask, y, -torch.inf).max()
+        lo = torch.minimum(y_lo, torch.minimum(mu0, mu1)) - 5 * bw
+        hi = torch.maximum(y_hi, torch.maximum(mu0, mu1)) + 5 * bw
+        width = torch.clamp(hi - lo, min=_TINY)
+        bins = torch.clamp(((y - lo) / width * nbins).to(torch.int32), 0,
+                           nbins - 1)
+        # masked samples fall out of range
+        prep.append((torch.where(mask, bins, -1), n_win, bw, lo, width))
+    hists = kernels.histogram_rows(torch.stack([p[0] for p in prep]), nbins)
 
-    bins = torch.clamp(((y - lo) / width * nbins).to(torch.int32), 0,
-                       nbins - 1)
-    bins = torch.where(mask, bins, -1)  # masked samples fall out of range
-    hist = kernels.histogram2d(torch.zeros_like(bins), bins, 1, nbins)[0]
-    centers = lo + (torch.arange(nbins, dtype=torch.float32,
-                                 device=y.device) + 0.5) / nbins * width
+    out = []
+    for (y, mask, mu0, mu1), (_, n_win, bw, lo, width), hist in zip(
+            chans, prep, hists):
+        centers = lo + (torch.arange(nbins, dtype=torch.float32,
+                                     device=y.device) + 0.5) / nbins * width
+        grid = linspace(mu0, mu1, npts)
+        z = (grid[:, None] - centers[None, :]) / bw
+        pdf = (torch.exp(-0.5 * z * z) * hist).sum(-1)
+        thr = grid[torch.argmin(pdf)]
+        ok = ((n_win >= 2) & torch.isfinite(mu0) & torch.isfinite(mu1)
+              & (mu0 != mu1) & (bw > 0))
+        rng = pdf.max() - pdf.min()
+        flat = pdf <= pdf.min() + PLATEAU_TOL * torch.clamp(rng, min=_TINY)
+        dg = torch.abs(grid[1] - grid[0])
+        plateau = flat.sum().to(torch.float32) * dg
+        out.append((torch.where(ok, thr, torch.nan),
+                    torch.where(ok, plateau, torch.nan)))
+    return out
 
-    grid = linspace(mu0, mu1, npts)
-    z = (grid[:, None] - centers[None, :]) / bw
-    pdf = (torch.exp(-0.5 * z * z) * hist).sum(-1)
-    thr = grid[torch.argmin(pdf)]
-    ok = ((n_win >= 2) & torch.isfinite(mu0) & torch.isfinite(mu1)
-          & (mu0 != mu1) & (bw > 0))
-    rng = pdf.max() - pdf.min()
-    flat = pdf <= pdf.min() + PLATEAU_TOL * torch.clamp(rng, min=_TINY)
-    dg = torch.abs(grid[1] - grid[0])
-    plateau = flat.sum().to(torch.float32) * dg
-    return (torch.where(ok, thr, torch.nan),
-            torch.where(ok, plateau, torch.nan))
+
+def shortest_int_hist(y: torch.Tensor, percent: float = 99.99,
+                      nbins: int = 8192, reduce_sum=None, reduce_min=None,
+                      reduce_max=None):
+    """Shortest interval holding ``percent`` % of the samples, from a
+    fixed-bin histogram and no global sort, so it composes with a sample
+    axis split over devices: pass collectives over that axis as the
+    ``reduce_*`` hooks and each device contributes its local block.  The
+    bounds land on bin edges (port of
+    ``opticomlib_tpu.ops.eyeana.shortest_int_hist``).
+
+    ``y``: (..., n) real or complex (the real part counts); leading axes are
+    independent channels, whose histograms are one
+    :func:`~opticomlib_tpu_torch.ops.kernels.histogram_rows` launch.
+    Returns ``(lo, hi)`` of shape ``y.shape[:-1]``."""
+    ident = (lambda x: x)
+    reduce_sum = reduce_sum or ident
+    reduce_min = reduce_min or ident
+    reduce_max = reduce_max or ident
+
+    y = (y.real if y.is_complex() else y).to(torch.float32)
+    lead = y.shape[:-1]
+    lo_g = reduce_min(y.min(dim=-1).values)
+    hi_g = reduce_max(y.max(dim=-1).values)
+    width = torch.clamp(hi_g - lo_g, min=_TINY)
+    idx = torch.clamp(((y - lo_g[..., None]) / width[..., None]
+                       * nbins).to(torch.int32), 0, nbins - 1)
+    hist = kernels.histogram_rows(
+        idx.reshape(-1, y.shape[-1]).contiguous(), nbins).reshape(
+            lead + (nbins,))
+    hist = reduce_sum(hist)
+
+    cum = torch.cumsum(hist, dim=-1)                 # inclusive
+    total = cum[..., -1:]
+    lag = torch.clamp(total * float(np.float32(percent / 100.0)), min=1.0)
+    target = (cum - hist) + lag                      # count before b, + lag
+    e = torch.searchsorted(cum, target.contiguous())  # first cum >= target
+    valid = e < nbins                                # lag samples fit from b
+    e_c = torch.clamp(e, 0, nbins - 1)
+    bw = (width / nbins)[..., None]
+    left = lo_g[..., None] + torch.arange(
+        nbins, dtype=torch.float32, device=y.device) * bw
+    right = lo_g[..., None] + (e_c + 1).to(torch.float32) * bw
+    w_int = torch.where(valid, right - left, torch.inf)
+    b_star = torch.argmin(w_int, dim=-1, keepdim=True)
+    return (torch.gather(left, -1, b_star)[..., 0],
+            torch.gather(right, -1, b_star)[..., 0])
 
 
 def _nearest(vals, x):
     return vals[torch.argmin(torch.abs(vals - x))]
+
+
+def eye_window(n: int, sps: int, nslots: int) -> int:
+    """Samples of an ``n``-sample waveform that :func:`eye_metrics` looks at:
+    whole slot pairs, at most ``nslots`` slots, from the start."""
+    n -= n % (2 * sps)
+    return min(n // sps, int(nslots)) // 2 * 2 * sps
 
 
 def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
@@ -181,18 +248,39 @@ def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
     """Blind eye metrology of a sampled waveform (8-stage pipeline of the
     reference GET_EYE).  Returns a dict of 0-d tensors plus the traces
     ``t``/``y``/``y_top``/``y_bot``/``y_25_75``, all on the input's
-    device."""
+    device.  A ``(C, n)`` input is ``C`` channels: every tensor of the
+    result gains a leading channel axis, and row ``c`` equals the 1-D call
+    on ``samples[c]``."""
+    rows = samples if samples.ndim == 2 else samples.reshape(1, -1)
+    outs = [_eye_stages(row, sps, nslots, sps_resamp) for row in rows]
+    # 7. KDE threshold + plateau-width diagnostic, all channels in one launch
+    kde = _kde_min_thresholds([o.pop("_kde") for o in outs])
+    for out, (thr, plateau) in zip(outs, kde):
+        out["threshold"], out["threshold_plateau"] = thr, plateau
+        # 8. ER and eye opening
+        mu0, mu1 = out["mu0"], out["mu1"]
+        out["er"] = torch.where(
+            mu0 > 0, 10 * torch.log10(mu1 / mu0),
+            torch.where(mu0 == 0, torch.inf, torch.nan))
+        out["eye_h"] = mu1 - 3 * out["s1"] - mu0 - 3 * out["s0"]
+    if samples.ndim != 2:
+        return outs[0]
+    return {k: (torch.stack([o[k] for o in outs])
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in outs[0].items()}
+
+
+def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
+                sps_resamp: Optional[int]) -> dict:
+    """Stages 1-6 of :func:`eye_metrics` on one channel; ``"_kde"`` holds
+    stage 7's input ``(y, window, mu0, mu1)``."""
     dev = samples.device
     y_in = (samples.real if samples.is_complex() else samples).reshape(
         -1).to(torch.float32)
     out: dict = {"sps": sps}
-    n0 = int(y_in.shape[0])
 
     # 1. truncation and centering
-    rem = n0 % (2 * sps)
-    if rem:
-        y_in = y_in[:-rem]
-    nslots = min(int(y_in.shape[0] // sps), int(nslots)) // 2 * 2
+    nslots = eye_window(int(y_in.shape[0]), sps, nslots) // sps
     y_in = y_in[: nslots * sps]
     y_in = torch.roll(y_in, -sps // 2 + 1)  # floor division, as the host
 
@@ -287,13 +375,5 @@ def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
     out["mu0"] = mu0 = _masked_mean(y, bot_sel)
     out["s0"] = s0 = _masked_std(y, bot_sel)
 
-    # 7. KDE threshold + plateau-width diagnostic
-    out["threshold"], out["threshold_plateau"] = _kde_min_threshold(
-        y, window, mu0, mu1)
-
-    # 8. ER and eye opening
-    out["er"] = torch.where(
-        mu0 > 0, 10 * torch.log10(mu1 / mu0),
-        torch.where(mu0 == 0, torch.inf, torch.nan))
-    out["eye_h"] = mu1 - 3 * s1 - mu0 - 3 * s0
+    out["_kde"] = (y, window, mu0, mu1)
     return out

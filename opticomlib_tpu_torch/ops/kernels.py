@@ -13,6 +13,10 @@ adc_quantize  CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
 fir_filter    CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
 ============  ========================  ===============================
 
+``histogram2d`` has two wrappers over one kernel family: the table of index
+pairs (:func:`histogram2d`, the Pallas kernel's function) and its row-batched
+form (:func:`histogram_rows`, the JAX package's ``vmap`` over a row scatter in
+``ops/eyeana.py``); both count as ``histogram2d`` launches.
 ``adc_quantize`` has two wrappers over one kernel source: kernel mode
 (:func:`adc_quantize`, the Pallas kernel's function) and link mode
 (:func:`adc_quantize_link`, the fused link's ADC); both count as
@@ -30,12 +34,14 @@ first launch on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
-           "histogram2d", "histogram2d_ref", "adc_quantize",
+           "histogram2d", "histogram2d_ref", "histogram_rows",
+           "histogram_rows_ref", "HIST_MAX_ROWS", "adc_quantize",
            "adc_quantize_ref", "adc_quantize_link", "adc_quantize_link_ref",
            "fir_filter", "fir_filter_ref", "FIR_MAX_TAPS", "LAUNCHES",
            "reset_launches"]
@@ -140,8 +146,17 @@ def cmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# 2-D histogram
+# histograms: the 2-D table of index pairs, and its row-batched form
 # ---------------------------------------------------------------------------
+#: most rows (or table rows ``nt``) one launch takes: rows times tiles is the
+#: grid's second dimension (``kMaxTiles`` in csrc/histogram2d.cu)
+HIST_MAX_ROWS = 65535 // 16
+
+#: the kernels' u32 scratch per (device index, stream): all zero between
+#: launches (the last block of a launch zeroes what the launch used)
+_hist_scratch: dict = {}
+
+
 def histogram2d_ref(t_idx: torch.Tensor, y_idx: torch.Tensor, nt: int,
                     ny: int) -> torch.Tensor:
     """Plain version: ``bincount`` over ``t*ny + y`` on the in-range pairs."""
@@ -149,6 +164,78 @@ def histogram2d_ref(t_idx: torch.Tensor, y_idx: torch.Tensor, nt: int,
     flat = t_idx[ok].to(torch.int64) * ny + y_idx[ok].to(torch.int64)
     return torch.bincount(flat, minlength=nt * ny).to(
         torch.float32).reshape(nt, ny)
+
+
+def histogram_rows_ref(y_idx: torch.Tensor, ny: int) -> torch.Tensor:
+    """Plain version of :func:`histogram_rows`: ``bincount`` over
+    ``row*ny + y`` on the in-range samples."""
+    nrow = y_idx.shape[0]
+    ok = (y_idx >= 0) & (y_idx < ny)
+    row = torch.arange(nrow, device=y_idx.device).unsqueeze(1).expand_as(
+        y_idx)
+    flat = row[ok] * ny + y_idx[ok].to(torch.int64)
+    return torch.bincount(flat, minlength=nrow * ny).to(
+        torch.float32).reshape(nrow, ny)
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as a pointer value.
+    ``torch.cuda.current_stream`` builds a ``Stream`` object on every call,
+    several microseconds of a launch that takes about ten; torch's own raw
+    accessor (the one its Triton backend launches with) is taken where this
+    torch has it."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _hist_launch(rows: bool, t_idx, y_idx, nt: int, ny: int) -> torch.Tensor:
+    """Launch the histogram kernel family on CUDA tensors: one output
+    allocation, the cached scratch, the row count ``nt`` of ``y_idx`` or the
+    pairs ``(t_idx, y_idx)``."""
+    from . import _build
+    lib = _build.load_library("histogram2d")
+    dev = y_idx.device
+    stream = _raw_stream(dev.index)
+    need = _hist_scratch_len(rows, nt, ny)
+    scratch = _hist_scratch.get((dev.index, stream))
+    if need and (scratch is None or scratch.numel() < need):
+        # allocated on the stream that will use it
+        with torch.cuda.device(dev):
+            scratch = torch.zeros(max(need, 2**16), dtype=torch.int32,
+                                  device=dev)
+        _hist_scratch[(dev.index, stream)] = scratch
+    out = torch.empty((nt, ny), dtype=torch.float32, device=dev)
+    sp, sn = (scratch.data_ptr(), scratch.numel()) if need else (None, 0)
+    if rows:
+        err = lib.histogram_rows_launch(y_idx.data_ptr(), nt,
+                                        y_idx.shape[1], ny, sp, sn,
+                                        out.data_ptr(), dev.index, stream)
+    else:
+        err = lib.histogram2d_launch(t_idx.data_ptr(), y_idx.data_ptr(),
+                                     y_idx.numel(), nt, ny, sp, sn,
+                                     out.data_ptr(), dev.index, stream)
+    if err:
+        # a refused or failed launch may leave sums behind
+        _hist_scratch.pop((dev.index, stream), None)
+        _build.check(lib, err, "histogram2d")
+    LAUNCHES["histogram2d"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_scratch_len(rows: bool, nt: int, ny: int) -> int:
+    from . import _build
+    return int(_build.load_library("histogram2d").histogram_scratch_len(
+        int(rows), nt, ny))
+
+
+def _hist_shape(nt: int, ny: int) -> tuple:
+    nt, ny = int(nt), int(ny)
+    if nt < 1 or ny < 1 or nt * ny >= 2**31:
+        raise ValueError(f"bad histogram shape ({nt}, {ny})")
+    return nt, ny
 
 
 def histogram2d(t_idx: torch.Tensor, y_idx: torch.Tensor, nt: int,
@@ -163,26 +250,29 @@ def histogram2d(t_idx: torch.Tensor, y_idx: torch.Tensor, nt: int,
         raise ValueError(
             f"t_idx and y_idx must be 1-D of one length, got "
             f"{tuple(t_idx.shape)} and {tuple(y_idx.shape)}")
-    nt, ny = int(nt), int(ny)
-    if nt < 1 or ny < 1 or nt * ny >= 2**31:
-        raise ValueError(f"bad histogram shape ({nt}, {ny})")
+    nt, ny = _hist_shape(nt, ny)
     if not _on_cuda(t_idx, y_idx):
         return histogram2d_ref(t_idx, y_idx, nt, ny)
-    from . import _build
-    lib = _build.load_library("histogram2d")
-    counts = torch.empty((nt, ny), dtype=torch.int32, device=t_idx.device)
-    out = torch.empty((nt, ny), dtype=torch.float32, device=t_idx.device)
-    with torch.cuda.device(t_idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.histogram2d_launch(
-            ctypes.c_void_p(t_idx.data_ptr()),
-            ctypes.c_void_p(y_idx.data_ptr()),
-            ctypes.c_longlong(t_idx.numel()), ctypes.c_int(nt),
-            ctypes.c_int(ny), ctypes.c_void_p(counts.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
-    _build.check(lib, err, "histogram2d")
-    LAUNCHES["histogram2d"] += 1
-    return out
+    return _hist_launch(False, t_idx, y_idx, nt, ny)
+
+
+def histogram_rows(y_idx: torch.Tensor, ny: int) -> torch.Tensor:
+    """Row-batched histogram: ``counts[c, j] = #{k : y_idx[c, k] == j}`` as
+    float32 ``(C, ny)`` for int32 ``y_idx`` of shape ``(C, n)``, each row
+    counted on its own (the JAX package's ``vmap`` over a 1-D scatter).
+    Samples out of range (e.g. -1 for a masked sample) are dropped; counts
+    are exact integers (up to 2^24 per bin).  The same kernel family as
+    :func:`histogram2d` with the row taken from the block index, so no
+    row-index array is read; it counts as a ``histogram2d`` launch."""
+    _check(y_idx, "y_idx", torch.int32)
+    if y_idx.ndim != 2 or not 1 <= y_idx.shape[0] <= HIST_MAX_ROWS:
+        raise ValueError(
+            f"y_idx must be (C, n) with 1 <= C <= {HIST_MAX_ROWS}, got "
+            f"{tuple(y_idx.shape)}")
+    nrow, ny = _hist_shape(y_idx.shape[0], ny)
+    if not _on_cuda(y_idx):
+        return histogram_rows_ref(y_idx, ny)
+    return _hist_launch(True, None, y_idx, nrow, ny)
 
 
 # ---------------------------------------------------------------------------

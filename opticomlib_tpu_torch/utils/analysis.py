@@ -13,7 +13,7 @@ import numpy as np
 from scipy.special import erfc
 
 __all__ = ["db", "dbm", "idb", "idbm", "Q", "si", "shortest_int", "dec2bin",
-           "str2array", "tic", "toc"]
+           "dec2bin_array", "str2array", "tic", "toc"]
 
 
 def _is_real(x) -> bool:
@@ -117,6 +117,18 @@ def dec2bin(num: int, digits: int = 8) -> np.ndarray:
     out = np.zeros(digits, np.uint8)
     out[:] = (num >> np.arange(digits - 1, -1, -1)) & 1
     return out
+
+
+def dec2bin_array(nums: np.ndarray, digits: int = 8) -> np.ndarray:
+    """Vectorized :func:`dec2bin`: (M,) ints -> (M, digits) uint8 matrix."""
+    nums = np.asarray(nums, dtype=np.int64)
+    if np.any(nums < 0):
+        raise ValueError("All numbers must be non-negative.")
+    if np.any(nums > 2**digits - 1):
+        raise ValueError(
+            f"Some numbers are too large to be represented with {digits} bits.")
+    shifts = np.arange(digits - 1, -1, -1)
+    return ((nums[..., None] >> shifts) & 1).astype(np.uint8)
 
 
 def _str_dtype(string: str):

@@ -10,9 +10,13 @@ process per checkout, in the order parent, change, change, parent, so both
 versions see the same card in one call: config 2 and config 4 through
 ``LinkProgram.dsp`` (one first call, then steady calls) and the staged README
 chain (three runs, with the wall time of each device call), all at 2^24
-samples through the helpers of that checkout's ``chip_smoke.py``, and
-``cmul`` alone on both of its shapes.  Each run prints one ``RESULT`` line
-of JSON.  Needs a CUDA card and ``nvcc``.
+samples through the helpers of that checkout's ``chip_smoke.py``,
+``cmul`` alone on both of its shapes, and the histogram wrappers on the
+receivers' shapes (``histogram2d`` with a row-index array at (1, 4096) over
+2^20 eye-like samples, (16, 4096) and (16, 8192) over 16 x 2^20, (256, 256)
+over 2^22, one launch at a time and ten queued; ``histogram_rows`` too where
+the checkout has it).  Each run prints one ``RESULT`` line of JSON.  Needs a
+CUDA card and ``nvcc``.
 """
 import json
 import os
@@ -62,6 +66,52 @@ def one(root: str, tag: str) -> None:
                      dtype=torch.complex64)
     out["cmul_ms"] = cs.cuda_ms(torch, lambda: kernels.cmul(A, E))
     out["cmul_2pol_ms"] = cs.cuda_ms(torch, lambda: kernels.cmul(A2, E))
+    del A, E, A2
+
+    def eye_like(shape, ny):
+        """Bins as a receiver's KDE sees them: nine in ten masked (-1), the
+        rest around two levels."""
+        level = torch.where(torch.rand(shape, generator=g, device="cuda")
+                            > 0.5, 0.75, 0.25)
+        v = level + 0.02 * torch.randn(shape, generator=g, device="cuda")
+        bins = torch.clamp((v * ny).to(torch.int32), 0, ny - 1)
+        return torch.where(torch.rand(shape, generator=g, device="cuda")
+                           < 0.1, bins, -1)
+
+    def row_index(nrow, n):
+        return torch.arange(nrow, device="cuda",
+                            dtype=torch.int32).repeat_interleave(n)
+
+    hist = {}
+    for label, y, ny in (
+            ("(1, 4096) eye-like", eye_like((1, 2**20), 4096), 4096),
+            ("(16, 4096) eye-like", eye_like((16, 2**20), 4096), 4096),
+            ("(16, 4096) uniform", torch.randint(
+                0, 4096, (16, 2**20), generator=g, device="cuda",
+                dtype=torch.int32), 4096),
+            ("(16, 8192) uniform", torch.randint(
+                0, 8192, (16, 2**20), generator=g, device="cuda",
+                dtype=torch.int32), 8192)):
+        t, flat = row_index(*y.shape), y.reshape(-1)
+        want = kernels.histogram2d_ref(t, flat, y.shape[0], ny)
+        fns = {"pairs": lambda: kernels.histogram2d(t, flat, y.shape[0], ny)}
+        if hasattr(kernels, "histogram_rows"):
+            fns["rows"] = lambda: kernels.histogram_rows(y, ny)
+        for name, fn in fns.items():
+            assert torch.equal(fn(), want), (label, name)
+            hist[f"{name} {label}"] = (cs.cuda_ms(torch, fn),
+                                       cs.cuda_ms(torch, fn, inner=10))
+    t22 = torch.randint(0, 256, (2**22,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    for label, y22 in (("eye-like", eye_like((2**22,), 256)),
+                       ("uniform", torch.randint(
+                           0, 256, (2**22,), generator=g, device="cuda",
+                           dtype=torch.int32))):
+        fn = lambda: kernels.histogram2d(t22, y22, 256, 256)
+        assert torch.equal(fn(), kernels.histogram2d_ref(t22, y22, 256, 256))
+        hist[f"pairs (256, 256) 2^22 {label}"] = (
+            cs.cuda_ms(torch, fn), cs.cuda_ms(torch, fn, inner=10))
+    out["histogram_ms_one_and_queued"] = hist
     print("RESULT " + json.dumps(out), flush=True)
 
 

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Sweep the tile constants of the port's cmul and fir_filter kernels on a card.
+"""Sweep the tile constants of the port's cmul, fir_filter and histogram2d
+kernels on a card.
 
-    python3 scripts/sweep_torch_kernels.py
+    python3 scripts/sweep_torch_kernels.py [cmul] [fir] [hist]
 
-Writes variants of ``opticomlib_tpu_torch/ops/csrc/{cmul,fir_filter}.cu`` to
-``build/sweep/`` (the constants replaced in the text: threads a CTA, vectors
-a thread, CTAs an SM; for ``cmul`` also streaming loads and stores,
-``__ldcs``/``__stcs``, in place of plain ones), builds them all at once with
-the port's own ``nvcc`` flags, holds each to the kernel as committed bit for
-bit, and times each kernel alone (through ctypes, outputs allocated
-beforehand, median of 40 launches with CUDA events, two rounds) at the
-paths' shapes: ``cmul`` at 2^24 samples, same shape and (2, 2^24) x 1-D,
-beside ``torch.mul``; ``fir_filter`` at 2^24 samples with 783, 64, 16 and
-8192 taps.  Needs a CUDA card and ``nvcc``; prints the card's name and power
-limit first.
+Writes variants of ``opticomlib_tpu_torch/ops/csrc/{cmul,fir_filter,
+histogram2d}.cu`` to ``build/sweep/`` (the constants replaced in the text:
+threads a CTA, vectors a thread, CTAs an SM; for ``cmul`` also streaming
+loads and stores, ``__ldcs``/``__stcs``, in place of plain ones; for the
+histograms blocks an SM, threads, loads in flight, bins a tile, private
+sub-tables a block and warp aggregation), builds them all at once with the
+port's own ``nvcc`` flags, holds each to the kernel as committed bit for bit
+(the histograms: to exact counts), and times each kernel alone (through
+ctypes, outputs allocated beforehand, median of 40 launches with CUDA
+events, two rounds; the histograms ten launches in a row, a launch being
+a few microseconds) at the paths' shapes: ``cmul`` at 2^24 samples, same
+shape and (2, 2^24) x 1-D, beside ``torch.mul``; ``fir_filter`` at 2^24
+samples with 783, 64, 16 and 8192 taps; the histograms by rows at (1, 4096)
+over 2^20 samples and (16, 4096) over 16 x 2^20, each on a real eye window
+(config 2's receiver input) and on uniform bins, and by pairs at (256, 256)
+over 2^22 and (16, 8192) over 16 x 2^20.  With no argument it sweeps all
+three kernels.  Needs a CUDA card and ``nvcc``; prints the card's name and
+power limit first.
 """
 import ctypes
 import re
@@ -31,7 +39,6 @@ from opticomlib_tpu_torch.ops import _build, pulses  # noqa: E402
 
 CSRC = ROOT / "opticomlib_tpu_torch" / "ops" / "csrc"
 OUT = ROOT / "build" / "sweep"
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 STREAMING = [(r"= ([ab])\[off\];", r"= __ldcs(\1 + off);"),
              (r"c\[off\] = (cmul2\(av\[k\], bv\[k\]\));",
               r"__stcs(c + off, \1);")]
@@ -40,7 +47,27 @@ STREAMING = [(r"= ([ab])\[off\];", r"= __ldcs(\1 + off);"),
 def variants():
     """``{tag: (source name, [(pattern, replacement), ...])}``; an empty list
     is the kernel as committed."""
-    out = {"cmul": ("cmul", []), "fir": ("fir_filter", [])}
+    out = {"cmul": ("cmul", []), "fir": ("fir_filter", []),
+           "hist": ("histogram2d", [])}
+    for name, values in [("kBlocksPerSm", (1, 3, 4, 8)),
+                         ("kThreads", (128, 256, 1024)),
+                         ("kUnroll", (1, 2, 8)),
+                         ("kTileBins", (4096, 8192, 32768)),
+                         ("kSubTables", (2, 4))]:
+        for val in values:
+            out[f"hist {name} {val}"] = ("histogram2d", [
+                (rf"{name} = \d+;", f"{name} = {val};")])
+    out["hist aggregate"] = ("histogram2d", [
+        (r"kAggregate = false;", "kAggregate = true;")])
+    out["hist aggregate, 8 blocks an SM"] = ("histogram2d", [
+        (r"kAggregate = false;", "kAggregate = true;"),
+        (r"kBlocksPerSm = \d+;", "kBlocksPerSm = 8;")])
+    out["hist 4 blocks an SM, 256 threads"] = ("histogram2d", [
+        (r"kBlocksPerSm = \d+;", "kBlocksPerSm = 4;"),
+        (r"kThreads = \d+;", "kThreads = 256;")])
+    out["hist 1 block an SM, 1024 threads"] = ("histogram2d", [
+        (r"kBlocksPerSm = \d+;", "kBlocksPerSm = 1;"),
+        (r"kThreads = \d+;", "kThreads = 1024;")])
     for t, v in [(512, 1), (512, 2), (256, 2), (256, 4), (256, 8), (128, 4),
                  (1024, 2)]:
         tile = [(r"kThreads = \d+;", f"kThreads = {t};"),
@@ -78,15 +105,16 @@ def build_all(jobs):
                 if "Used" in ln]
         print(f"built {tag}: {' | '.join(regs)}", flush=True)
         lib = ctypes.CDLL(str(so))
-        if tag.startswith("cmul"):
-            lib.cmul_launch.argtypes = [P, P, P, LL, LL, I, P]
-        else:
-            lib.fir_launch.argtypes = [P, P, P, LL, I, P]
+        for fn, argtypes in _build.ENTRY_POINTS[jobs[tag][0]].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
         libs[tag] = lib
     return libs
 
 
-def ms(fn, reps=40):
+def ms(fn, reps=40, inner=1):
+    """Median over ``reps`` of the time of one ``fn()``, CUDA events around
+    ``inner`` calls in a row."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -94,10 +122,11 @@ def ms(fn, reps=40):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -121,15 +150,121 @@ def fir(lib, x, h, y):
     return y
 
 
+def hist(lib, case, scratch, out):
+    """One launch of a histogram case ``(y, ny)`` (by rows) or
+    ``(t, y, nt, ny)`` (by pairs) into ``out``."""
+    if len(case) == 2:
+        y, ny = case
+        err = lib.histogram_rows_launch(
+            y.data_ptr(), y.shape[0], y.shape[1], ny, scratch.data_ptr(),
+            scratch.numel(), out.data_ptr(), 0, stream())
+    else:
+        t, y, nt, ny = case
+        err = lib.histogram2d_launch(
+            t.data_ptr(), y.data_ptr(), y.numel(), nt, ny, scratch.data_ptr(),
+            scratch.numel(), out.data_ptr(), 0, stream())
+    assert err == 0, err
+    return out
+
+
+def eye_window_bins(dev):
+    """The KDE bin indices of config 2's receiver at 2^20 samples (8192 eye
+    slots resampled to 128): the (1, 2^20) int32 input of the main paths'
+    histogram, caught at the wrapper the metrology calls."""
+    from opticomlib_tpu_torch import link
+    from opticomlib_tpu_torch.ops import eyeana, kernels
+    from opticomlib_tpu_torch.ops.prbs import prbs
+    from opticomlib_tpu_torch.params import SimParams
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=16.0, pulse_shape="gaussian",
+        loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        stages=(link.FiberSpec(length=50.0, alpha=0.2, beta_2=-21.0,
+                               gamma=1.3), link.EDFASpec(G=10, NF=5)))
+    prog = link.build_link(spec, 2**14, SimParams.create(
+        sps=64, R=10e9, _warn=False), device=dev)
+    v = prog.run(bits=prbs(15, length=2**14)[0], seed=3).v
+    caught, wrapper = [], kernels.histogram_rows
+    kernels.histogram_rows = lambda y, ny: caught.append(y) or wrapper(y, ny)
+    try:
+        eyeana.eye_metrics(v, sps=64, nslots=8192, sps_resamp=128)
+    finally:
+        kernels.histogram_rows = wrapper
+    assert tuple(caught[0].shape) == (1, 2**20), caught[0].shape
+    return caught[0]
+
+
+def sweep_hist(libs, dev, g):
+    from opticomlib_tpu_torch.ops import kernels
+    eye1 = eye_window_bins(dev)
+    eye16 = torch.stack([torch.roll(eye1[0], 4099 * c) for c in range(16)])
+
+    def rand(shape, hi):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    y22 = (torch.where(torch.rand(2**22, generator=g, device=dev) > 0.5,
+                       190.0, 60.0) + 6.0 * torch.randn(
+                           2**22, generator=g, device=dev)).to(torch.int32)
+    rows16 = torch.arange(16, device=dev, dtype=torch.int32).repeat_interleave(
+        2**20)
+    cases = {
+        "rows (1, 4096) eye": (eye1, 4096),
+        "pairs (1, 4096) eye, zero row index": (
+            torch.zeros_like(eye1[0]), eye1[0], 1, 4096),
+        "rows (1, 4096) uniform": (rand((1, 2**20), 4096), 4096),
+        "rows (16, 4096) eye": (eye16, 4096),
+        "rows (16, 4096) uniform": (rand((16, 2**20), 4096), 4096),
+        "rows (16, 8192) uniform": (rand((16, 2**20), 8192), 8192),
+        "pairs (256, 256) 2^22 eye-like": (rand((2**22,), 256), y22, 256,
+                                           256),
+        "pairs (16, 8192) 16 x 2^20": (rows16, rand((2**24,), 8192), 16,
+                                       8192),
+    }
+    scratch = torch.zeros(2**20, dtype=torch.int32, device=dev)
+    print("histograms, ms a launch (ten queued), two rounds (variant: "
+          + " | ".join(cases) + ")")
+    want = {k: (kernels.histogram_rows_ref(*c) if len(c) == 2
+                else kernels.histogram2d_ref(*c)) for k, c in cases.items()}
+    outs = {k: torch.empty_like(w) for k, w in want.items()}
+    hist_libs = {t: lib for t, lib in libs.items() if t.startswith("hist")}
+    for tag, lib in hist_libs.items():
+        for k, c in cases.items():
+            for _ in range(2):  # the second launch finds the scratch zero
+                assert torch.equal(hist(lib, c, scratch, outs[k]),
+                                   want[k]), (tag, k)
+    rows = {}
+    for _ in range(2):
+        for tag, lib in hist_libs.items():
+            rows.setdefault(tag, []).append([
+                ms(lambda: hist(lib, c, scratch, outs[k]), inner=10)
+                for k, c in cases.items()])
+    for tag, r in rows.items():
+        print(f"  {tag}: " + " | ".join(
+            f"{a:.4f}, {b:.4f}" for a, b in zip(*r)), flush=True)
+
+
 def main():
+    which = set(sys.argv[1:]) or {"cmul", "fir", "hist"}
+    if not which <= {"cmul", "fir", "hist"}:
+        raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    libs = build_all(variants())
+    libs = build_all({tag: job for tag, job in variants().items()
+                      if tag.split()[0] in which})
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if "hist" in which:
+        sweep_hist(libs, dev, g)
+    if "cmul" in which:
+        sweep_cmul(libs, dev, g)
+    if "fir" in which:
+        sweep_fir(libs, dev, g)
+
+
+def sweep_cmul(libs, dev, g):
     rows = {}
 
     def field(*shape):
@@ -156,8 +291,9 @@ def main():
     for tag, r in rows.items():
         print(f"  {tag}: " + "; ".join(f"{a:.4f}, {b:.4f}" for a, b in r),
               flush=True)
-    del A, E, A2, C, C2, want, want2
 
+
+def sweep_fir(libs, dev, g):
     rng = np.random.default_rng(0)
     taps = {783: pulses.fir_taps(pulses.gauss_pulse(60, 64).real)[0],
             64: pulses.fir_taps(pulses.nrz_pulse(60, 64))[0],

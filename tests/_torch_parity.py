@@ -1,6 +1,7 @@
 """Shared helpers of the parity tests between the JAX package and its
 PyTorch port: the JAX link's noise draws rebuilt along its key stream, so
-the port can be fed the same numbers through ``noise=``."""
+the port can be fed the same numbers through ``noise=`` (the chain's normal
+draws and the hard PPM receiver's uniform draws)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +55,15 @@ def jax_draws(seed, n, spec):
     out["thermal"] = _normal(k_T, (n,))
     out["shot"] = _normal(k_N, (n,))
     return out
+
+
+def jax_hdd_uniform(seed, n_sym, M):
+    """The ``(n_sym, M)`` uniform draws of the JAX hard PPM receiver's
+    symbol repair for link seed ``seed`` (link.py ``_ppm_hard_rx_ingraph``:
+    ``fold_in(PRNGKey(seed), 0x504D)``; models/ppm.py
+    ``hdd_positions_jax``), for the port's ``noise["hdd"]``."""
+    key = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed)), 0x504D)
+    return np.asarray(jax.random.uniform(key, (n_sym, M), dtype=jnp.float32))
 
 
 def rel_l2(a, b):

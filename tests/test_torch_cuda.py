@@ -89,6 +89,114 @@ def test_histogram2d_kernel_matches_plain(cuda_device, n, nt, ny):
     assert kernels.LAUNCHES["histogram2d"] == 1
 
 
+def _eye_bins(n, ny, device, seed=0):
+    """Bin indices as the receiver's KDE sees them: most samples masked
+    (-1), the rest crowded around two levels."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    level = torch.where(torch.rand(n, generator=g, device=device) > 0.5,
+                        0.75, 0.25)
+    v = level + 0.02 * torch.randn(n, generator=g, device=device)
+    bins = torch.clamp((v * ny).to(torch.int32), 0, ny - 1)
+    window = torch.rand(n, generator=g, device=device) < 0.1
+    return torch.where(window, bins, -1)
+
+
+def _view(flat, off, shape):
+    """``flat`` values as a contiguous tensor of ``shape`` whose storage
+    starts ``off`` int32 elements (4 bytes each) past an allocation."""
+    buf = torch.empty(flat.numel() + off, dtype=flat.dtype,
+                      device=flat.device)
+    buf[off:] = flat.reshape(-1)
+    return buf[off:].reshape(shape)
+
+
+@pytest.mark.parametrize("nrow,n,ny", [
+    (1, 2**20, 4096), (16, 2**20, 4096), (16, 2**18, 8192), (1, 2**20 + 3, 4096),
+    (3, 4099, 4096), (5, 1, 16), (2, 0, 16), (1, 2**18, 40_000),
+    (1, 2**16, 300_000), (300, 1000, 64)])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("data", ["eye", "uniform"])
+def test_histogram_rows_kernel_exact(cuda_device, nrow, n, ny, off, data):
+    """The row-batched entry against its plain version, exact counts: the
+    receivers' shapes, odd lengths (rows then start 4, 8 or 12 bytes off a
+    16-byte boundary), views 4, 8 and 12 bytes off, one block a row, more
+    bins than a tile (40,000) and than the tiles cover (300,000: the global
+    path), empty rows; eye-like and uniform bins with out-of-range samples
+    on both sides."""
+    if data == "eye":
+        flat = _eye_bins(nrow * n, ny, cuda_device)
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        flat = torch.randint(-2, ny + 2, (nrow * n,), generator=g,
+                             device=cuda_device, dtype=torch.int32)
+    y = _view(flat, off, (nrow, n))
+    assert y.is_contiguous() and (y.data_ptr() % 16 == 4 * off or n == 0)
+    for _ in range(2):   # the second launch finds the scratch zero again
+        got = kernels.histogram_rows(y, ny)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.histogram_rows_ref(y, ny))
+    assert kernels.LAUNCHES["histogram2d"] == 2
+
+
+@pytest.mark.parametrize("n,nt,ny", [
+    (2**20, 1, 4096), (2**22, 256, 256), (2**20, 16, 8192), (2**20 + 1, 64, 256),
+    (10_001, 256, 1024), (2**18, 1024, 1024), (0, 1, 16), (0, 512, 512),
+    (5, 3, 3)])
+@pytest.mark.parametrize("off_t,off_y", [(0, 0), (1, 1), (3, 3), (0, 1),
+                                         (2, 0)])
+def test_histogram2d_kernel_exact(cuda_device, n, nt, ny, off_t, off_y):
+    """The 2-D entry against its plain version, exact counts: one tile,
+    several tiles ((256, 256), (16, 8192), (256, 1024)), a table on the
+    global path ((1024, 1024)), empty input; both arrays the same distance
+    off a 16-byte boundary (vector loads) or not (element loads); indices
+    out of range on both sides; all-masked input."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    t = _view(torch.randint(-1, nt + 1, (n,), generator=g, device=cuda_device,
+                            dtype=torch.int32), off_t, (n,))
+    y = _view(torch.randint(-1, ny + 1, (n,), generator=g, device=cuda_device,
+                            dtype=torch.int32), off_y, (n,))
+    for yy in (y, torch.full_like(y, -1)):
+        got = kernels.histogram2d(t, yy, nt, ny)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.histogram2d_ref(t, yy, nt, ny))
+    assert kernels.LAUNCHES["histogram2d"] == 2
+
+
+def test_histogram_hot_bin_and_streams(cuda_device):
+    """Every sample in one bin (the worst contention) counts exactly, and
+    launches on two streams keep their scratch apart."""
+    y = torch.full((4, 2**20), 7, dtype=torch.int32, device=cuda_device)
+    want = kernels.histogram_rows_ref(y, 4096)
+    assert torch.equal(kernels.histogram_rows(y, 4096), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a = kernels.histogram_rows(y, 4096)
+    b = kernels.histogram_rows(y, 4096)
+    torch.cuda.synchronize()
+    assert torch.equal(a, want) and torch.equal(b, want)
+
+
+def test_sweep_is_one_histogram_launch(cuda_device):
+    """A 3-channel ``dsp_wdm`` on the card equals the per-channel ``dsp``
+    calls (error and step counts equal, thresholds rel 1e-6) with one
+    histogram launch for the sweep."""
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=-18.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        include_shot=False)
+    prog = link.build_link(spec, 2**12, SimParams.create(
+        sps=16, R=10e9, _warn=False), device=cuda_device)
+    bits = prbs(15, length=3 * 2**12)[0].reshape(3, -1)
+    kernels.reset_launches()
+    sw = prog.dsp_wdm(3, bits=bits, seed=5)
+    assert kernels.LAUNCHES["histogram2d"] == 1
+    for c in range(3):
+        d = prog.dsp(bits=bits[c], seed=5 + c, sps_resamp=None)
+        assert sw.n_errors[c] == d.n_errors and sw.n_steps[c] == d.n_steps
+        assert abs(sw.threshold[c] - d.threshold) <= 1e-6 * abs(d.threshold)
+
+
 def test_wrappers_reject_mixed_devices(cuda_device):
     A = _field(16, 3, cuda_device)
     with pytest.raises(ValueError):

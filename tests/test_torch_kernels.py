@@ -122,6 +122,56 @@ def test_histogram2d_ref_matches_pallas(n, nt, ny):
     np.testing.assert_array_equal(got.numpy(), expect)
 
 
+def _pallas_rows(y, ny):
+    """The row-batched histogram through the Pallas kernel (interpret mode):
+    row c as the pairs (c, y[c, k])."""
+    nrow, n = y.shape
+    t = np.repeat(np.arange(nrow), n).astype(np.float32)
+    return np.asarray(pk.histogram2d(t, y.reshape(-1).astype(np.float32),
+                                     nrow, ny))
+
+
+@pytest.mark.parametrize("nrow,n,ny", [(1, 4096, 4096), (3, 5000, 64),
+                                       (16, 1000, 256), (2, 0, 16)])
+def test_histogram_rows_matches_pallas(nrow, n, ny):
+    """The wrapper (on the CPU: its plain version) against the Pallas
+    kernel, masked -1 and out-of-range samples included, one row, and empty
+    rows; counts exact."""
+    rng = np.random.default_rng(13)
+    y = rng.integers(-2, ny + 2, (nrow, n)).astype(np.int32)
+    y[:, ::5] = -1                                     # masked samples
+    got = kernels.histogram_rows(torch.from_numpy(y), ny)
+    assert got.dtype == torch.float32 and got.shape == (nrow, ny)
+    if n:
+        np.testing.assert_array_equal(got.numpy(), _pallas_rows(y, ny))
+    else:
+        assert not got.any()
+    for c in range(nrow):   # a row is the 1-row table of the 2-D entry
+        yc = torch.from_numpy(y[c].copy())
+        assert torch.equal(got[c], kernels.histogram2d(
+            torch.zeros_like(yc), yc, 1, ny)[0])
+    assert kernels.LAUNCHES["histogram2d"] == 0
+
+
+@pytest.mark.parametrize("n,nt,ny", [(6000, 256, 256), (6000, 16, 8192),
+                                     (0, 4, 4), (100, 1, 1)])
+def test_histogram2d_wrapper_matches_pallas(n, nt, ny):
+    """The 2-D entry at the shapes of the eye-density render and of the
+    range estimator's table, empty input and a one-bin table."""
+    rng = np.random.default_rng(14)
+    t = rng.integers(-1, nt + 1, n).astype(np.int32)
+    y = rng.integers(-1, ny + 1, n).astype(np.int32)
+    got = kernels.histogram2d(torch.from_numpy(t), torch.from_numpy(y), nt, ny)
+    assert got.dtype == torch.float32 and got.shape == (nt, ny)
+    if n:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pk.histogram2d(
+            t.astype(np.float32), y.astype(np.float32), nt, ny)))
+    else:
+        assert not got.any()
+    ok = (t >= 0) & (t < nt) & (y >= 0) & (y < ny)
+    assert got.sum().item() == ok.sum()
+
+
 def test_wrappers_take_plain_path_on_cpu():
     A, B = torch.from_numpy(_field(300, 7)), torch.from_numpy(_field(300, 8))
     Bk, Hk = kernels.nl_halfstep(A, 0.2)
@@ -132,6 +182,9 @@ def test_wrappers_take_plain_path_on_cpu():
     y = torch.arange(300, dtype=torch.int32) % 7 - 1
     assert torch.equal(kernels.histogram2d(t, y, 1, 5),
                        kernels.histogram2d_ref(t, y, 1, 5))
+    y2 = y.reshape(3, 100).contiguous()
+    assert torch.equal(kernels.histogram_rows(y2, 5),
+                       kernels.histogram_rows_ref(y2, 5))
     x = A.real.contiguous()
     assert torch.equal(kernels.adc_quantize(x, -1.0, 1.0, 4),
                        kernels.adc_quantize_ref(x, -1.0, 1.0, 4))
@@ -170,6 +223,16 @@ def test_wrappers_take_plain_path_on_cpu():
                                 torch.zeros(4, dtype=torch.int64), 1, 4),
     lambda: kernels.histogram2d(torch.zeros(4, dtype=torch.int32),
                                 torch.zeros(5, dtype=torch.int32), 1, 4),
+    lambda: kernels.histogram2d(torch.zeros(4, dtype=torch.int32),
+                                torch.zeros(4, dtype=torch.int32), 0, 4),
+    lambda: kernels.histogram_rows(torch.zeros(4, dtype=torch.int32), 4),
+    lambda: kernels.histogram_rows(torch.zeros((2, 4)), 4),        # dtype
+    lambda: kernels.histogram_rows(torch.zeros((2, 4), dtype=torch.int32),
+                                   0),                             # bins
+    lambda: kernels.histogram_rows(torch.zeros((2, 8), dtype=torch.int32)
+                                   [:, ::2], 4),                   # layout
+    lambda: kernels.histogram_rows(torch.zeros(
+        (kernels.HIST_MAX_ROWS + 1, 1), dtype=torch.int32), 4),    # rows
     lambda: kernels.adc_quantize(torch.zeros(4, dtype=torch.float64),
                                  0.0, 1.0, 4),                     # dtype
     lambda: kernels.adc_quantize(torch.zeros(4), 0.0, 1.0, 0),     # nbits

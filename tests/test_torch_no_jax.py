@@ -21,7 +21,8 @@ _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
             "opticomlib_tpu_torch.utils.analysis",
             "opticomlib_tpu_torch.utils.theory", "opticomlib_tpu_torch.rng",
             "opticomlib_tpu_torch.signals", "opticomlib_tpu_torch.devices",
-            "opticomlib_tpu_torch.ook", "opticomlib_tpu_torch.models.ook")
+            "opticomlib_tpu_torch.ook", "opticomlib_tpu_torch.models.ook",
+            "opticomlib_tpu_torch.ppm", "opticomlib_tpu_torch.models.ppm")
 
 
 def test_port_imports_no_jax():
