@@ -92,6 +92,27 @@ It checks them in phases, one line each; any failure exits non-zero:
     density through ``histogram2d`` equals ``np.histogram2d`` of the same
     traces exactly.
 
+15. the resumable fiber on the card at 2^24 samples (config 2's launch
+    field and fiber): ``ssfm_propagate_resumable(segment_km=10)`` run whole,
+    then killed after its second save and resumed: the same bits as the
+    whole run, the unsegmented ``ssfm_propagate`` to 2e-4 of the peak (the
+    adaptive segments take other steps) and, at a fixed h, to the JAX
+    test's tolerance; ``span_chain_resumable`` over 4 of config 4's spans (80 km o4
+    at h = 20 km + gain + ASE keyed by the span) the same way; wall time with
+    and without checkpoints, bytes and seconds a save;
+16. the sharded fiber at world size 1 over NCCL: ``initialize_multihost``
+    (one rank, file rendezvous), ``make_link_mesh(1, 1)``, ``ssfm_sharded``
+    on the same field, pencil phi_max-adaptive (step count equal to
+    ``ssfm_propagate``'s, field to 5e-4 of the peak), pencil fixed h,
+    overlap fixed h (a rank that is its own ring neighbour, 5e-3), o4 fixed
+    on one config-4 span, and ``FIBER(mesh=)`` through ``gv`` with no device
+    named; each wall time beside the unsharded call's and beside that
+    call's steps alone (its phase grid kept on the card);
+17. profiling: one config-2 ``dsp`` under ``trace`` with ``annotate("ssfm")``
+    around the fiber: the Chrome trace holds the region and the
+    ``nl_halfstep`` kernel; ``DeviceTimer`` agrees with CUDA events on that
+    call within 5 %.
+
 The line before the last is a JSON object with, for each kernel, its
 launches (summed over the counted runs of the paths; per path under
 ``launches_by_path``), its error, its time, the plain version's, the
@@ -103,6 +124,7 @@ the function must move over 3.35 TB/s and its float32 operations over
 this checkout.
 """
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -494,7 +516,12 @@ def main() -> None:
     # (2, 2^24) is config 4's 2-polarisation field, multiplied by one
     # 2^24 spectral row; the negative coefficient is how the Yoshida w0
     # substep and every DBP span kick
-    for shape in [(2**24,), (2**24 + 5,), (2, 2**20), (2, 2**24)]:
+    # 2^24 + 2H is the padded block of the sharded fiber's overlap path at
+    # h = 1 km (H = 109 samples a side at config 2's rate)
+    from opticomlib_tpu_torch.parallel.halo import halo_width
+    n_padded = 2**24 + 2 * halo_width(1.0, -21.0, 0.0, SPS * R)
+    for shape in [(2**24,), (2**24 + 5,), (n_padded,), (2, 2**20),
+                  (2, 2**24)]:
         A = field(*shape)
         E = field(shape[-1])
         for c in (coeff, -coeff):
@@ -514,8 +541,10 @@ def main() -> None:
                 err["cmul"] = max(err["cmul"], float((C - Cr).abs().max()))
         del A, E, B, H, Br, Hr, C, Cr, other
     # cmul on views 8 bytes off a 16-byte boundary (the launcher's scalar
-    # path), same-shape and broadcast, even and odd lengths
-    for shape in [(2**20,), (2**20 + 1,), (2, 2**20), (2, 2**20 + 1)]:
+    # path), same-shape and broadcast, even and odd lengths, and once at the
+    # full 2^24 (a block cut out of a padded buffer one sample in)
+    for shape in [(2**20,), (2**20 + 1,), (2, 2**20), (2, 2**20 + 1),
+                  (2**24,)]:
         for off_a, off_b in ((1, 0), (0, 1), (1, 1)):
             A = field(int(np.prod(shape)) + 1)[off_a:off_a + int(
                 np.prod(shape))].reshape(shape)
@@ -532,7 +561,7 @@ def main() -> None:
     spec = config2_spec(link)
     params = SimParams.create(sps=SPS, R=R, _warn=False)
     v_small = link.build_link(spec, SMALL_BITS, params, device=dev).run(
-        bits=prbs(15, length=SMALL_BITS)[0], seed=3).v
+        bits=prbs(15, length=SMALL_BITS)[0], seed=3).v.signal
     caught, rows_wrapper = [], kernels.histogram_rows
     kernels.histogram_rows = lambda yy, ny: (caught.append(yy)
                                              or rows_wrapper(yy, ny))
@@ -787,7 +816,7 @@ def main() -> None:
     for name in ("cuda", "cpu"):
         prog = link.build_link(spec, SMALL_BITS, params, device=name)
         run = prog.run(bits=bits, noise=noise)
-        res[name] = (run.v.cpu().numpy(), run.n_steps,
+        res[name] = (run.v.to_numpy(), run.n_steps,
                      prog.dsp(bits=bits, noise=noise))
     (v_g, st_g, d_g), (v_c, st_c, d_c) = res["cuda"], res["cpu"]
     rel = float(np.linalg.norm(v_g - v_c) / np.linalg.norm(v_c))
@@ -841,11 +870,11 @@ def main() -> None:
         t0 = time.perf_counter()
         prog = link.build_link(unquantised, SMALL_BITS4, params4, device=name)
         run = prog.run(bits=bits, noise=noise)
-        vq = link._adc_quantize(run.v, spec4.adc_bits)
+        vq = link._adc_quantize(run.v.signal, spec4.adc_bits)
         bits_f32 = torch.as_tensor(bits.astype(np.float32), device=name)
         m, rth, n_err = link._ook_rx_ingraph(vq, vq[prog.instant::SPS4],
                                              bits_f32, SPS4, 8192, 128)
-        res[name] = dict(v=run.v.cpu().numpy(), vq=vq.cpu().numpy(),
+        res[name] = dict(v=run.v.to_numpy(), vq=vq.cpu().numpy(),
                          steps=run.n_steps, n_err=int(n_err), th=float(rth),
                          eye=float(m["mu1"] - m["mu0"]), ok=run.rin_ok,
                          s=time.perf_counter() - t0)
@@ -1265,11 +1294,381 @@ def main() -> None:
           f"equal to np.histogram2d (max bin {int(occ.max())})", flush=True)
     del prog, d, e, et
 
+    # ---- phase 15: the resumable fiber on the card ----
+    import tempfile
+
+    from opticomlib_tpu_torch import runtime
+    from opticomlib_tpu_torch.ops import noise as noise_ops, ssfm
+    from opticomlib_tpu_torch.runtime.checkpoint import \
+        PropagationCheckpointer
+
+    # config 2's launch field: the program's field before any fiber
+    b2b = link.build_link(dataclasses.replace(spec, stages=()), N_BITS,
+                          params, device=dev, return_field=True)
+    A0 = b2b.run(bits=prbs(15, length=N_BITS)[0]).field.contiguous()
+    del b2b
+    n = A0.numel()
+    check(n == 2**24 and A0.dtype == torch.complex64, 15,
+          f"launch field {tuple(A0.shape)} {A0.dtype}")
+    w = 2 * np.pi * np.fft.fftfreq(n) * params.fs
+    fib = dict(alpha=0.2, beta_2=-21.0, gamma=1.3, phi_max=0.01)
+    SEG = 10.0
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def dying_save(after):
+        """Patch the checkpointer to raise once ``after`` saves are on disk;
+        returns the undo."""
+        orig, calls = PropagationCheckpointer.save, {"n": 0}
+
+        def save(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            calls["n"] += 1
+            if calls["n"] == after:
+                raise RuntimeError("killed after a save")
+            return out
+
+        PropagationCheckpointer.save = save
+        return lambda: setattr(PropagationCheckpointer, "save", orig)
+
+    saves = []  # (seconds, bytes) of every save of this phase
+    plain_save = PropagationCheckpointer.save
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        path = plain_save(self, *a, **kw)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    ssfm.ssfm_propagate(A0, w, 50.0, **fib)  # warm-up (cuFFT plans)
+    (straight, steps_straight), t_straight = wall(
+        lambda: ssfm.ssfm_propagate(A0, w, 50.0, **fib))
+    check(steps_straight == PINNED["n_steps"], 15,
+          f"unsegmented n_steps {steps_straight}")
+
+    def segments_by_hand():
+        A, steps = A0, 0
+        for _ in range(5):
+            A, st = ssfm.ssfm_propagate(A, w, SEG, **fib)
+            steps += st
+        return A, steps
+
+    (by_hand, steps_seg), t_by_hand = wall(segments_by_hand)
+    with tempfile.TemporaryDirectory() as tmp:
+        PropagationCheckpointer.save = timed_save
+        try:
+            kernels.reset_launches()
+            whole, t_whole = wall(lambda: runtime.ssfm_propagate_resumable(
+                A0, w, 50.0, os.path.join(tmp, "whole"), SEG, **fib))
+            launches_res = dict(kernels.LAUNCHES)
+        finally:
+            PropagationCheckpointer.save = plain_save
+        check(len(saves) == 5 and sorted(os.listdir(os.path.join(
+            tmp, "whole"))) == ["ckpt_00000004.npz", "ckpt_00000005.npz"], 15,
+            f"{len(saves)} saves, files "
+            f"{os.listdir(os.path.join(tmp, 'whole'))}")
+        undo = dying_save(2)
+        try:
+            runtime.ssfm_propagate_resumable(
+                A0, w, 50.0, os.path.join(tmp, "crash"), SEG, **fib)
+            fail(15, "the run was not killed")
+        except RuntimeError as exc:
+            check("killed after a save" in str(exc), 15, str(exc))
+        finally:
+            undo()
+        resumed, t_resumed = wall(lambda: runtime.ssfm_propagate_resumable(
+            A0, w, 50.0, os.path.join(tmp, "crash"), SEG, **fib))
+    check(whole.device == A0.device and whole.dtype == torch.complex64, 15,
+          f"result on {whole.device} as {whole.dtype}")
+    check(torch.equal(resumed, whole), 15, "the resumed run differs from the "
+          f"whole run: max abs {float((resumed - whole).abs().max()):.3g}")
+    check(torch.equal(by_hand, whole), 15,
+          "the resumable run differs from its segments run by hand")
+    peak_amp = float(straight.abs().max())
+    err_seg = float((whole - straight).abs().max()) / peak_amp
+    check(err_seg <= 2e-4, 15, f"segmented vs unsegmented: max abs err / "
+          f"peak {err_seg:.3g} > 2e-4")
+    # Adaptive segments probe h0 anew at every boundary and clip their last
+    # step to it (61 steps against 58), so they differ from the straight run
+    # by the splitting error.  tests/test_runtime.py's atol=1e-5 on a field of
+    # amplitude 0.2 (5e-5 of the peak) is for its fixed steps, where the
+    # segments take the straight run's steps: held here at h = 1 km.
+    fixed = dict(fib, h=1.0)
+    A_seg = A0
+    for _ in range(5):
+        A_seg = ssfm.ssfm_propagate(A_seg, w, SEG, **fixed)[0]
+    straight_fixed = ssfm.ssfm_propagate(A0, w, 50.0, **fixed)[0]
+    err_fixed = float((A_seg - straight_fixed).abs().max()) / peak_amp
+    check(err_fixed <= 5e-5, 15, f"fixed-step segments vs the straight run: "
+          f"max abs err / peak {err_fixed:.3g} > 5e-5")
+    del A_seg, straight_fixed
+    check(launches_res["nl_halfstep"] == steps_seg
+          and launches_res["cmul"] == 2 * steps_seg, 15,
+          f"launches {launches_res} for {steps_seg} steps")
+    s_save = statistics.median(t for t, _ in saves)
+    print(f"phase 15 resumable fiber (2^24 samples, 50 km in 5 segments): ok "
+          f"resumed after 2 saves bit-equal to the whole run, segmented vs "
+          f"unsegmented {err_seg:.3g} of the peak ({steps_seg} vs "
+          f"{steps_straight} steps; at fixed h = 1 km {err_fixed:.3g}); "
+          f"launches {launches_res}", flush=True)
+    print(f"phase 15 wall s: unsegmented {t_straight:.3f}, 5 segments "
+          f"without checkpoints {t_by_hand:.3f}, with {t_whole:.3f}, resume "
+          f"of the last 3 {t_resumed:.3f}", flush=True)
+    print(f"phase 15 save: {saves[0][1]} bytes a file, median "
+          f"{s_save:.3f} s to write one ({saves[0][1] / s_save / 1e9:.2f} "
+          f"GB/s), checkpoints cost {(t_whole - t_by_hand) / 5:.3f} s a "
+          f"segment with the copy to the host", flush=True)
+    del by_hand, resumed
+
+    # span_chain_resumable over 4 of config 4's spans: 80 km o4 at h = 20 km,
+    # 16 dB of gain, 2-polarisation ASE from a generator keyed by the span
+    span4 = spec4.stages[0].stages[0]
+    phi_w4 = torch.as_tensor(ssfm.dispersion_phase(w, span4.beta_2, 0.0),
+                             device=dev)
+    hs4 = ssfm.ssfm_step_schedule(span4.length, span4.h)
+    sigma4 = noise_ops.ase_sigma(16, 5, params.f0, params.fs)
+    gain4 = float(np.float32(10 ** (16 / 20)))
+
+    def apply_span(A, s):
+        A = ssfm.ssfm_o4_scan_inside(A, phi_w4, hs4, span4.gamma,
+                                     ssfm.alpha_per_km(span4.alpha)) * gain4
+        gen = torch.Generator(device=dev).manual_seed(3 * 2**16 + s)
+        d = noise_ops.gaussian((4, n), sigma4, gen)
+        return A + torch.complex(d[:2], d[2:])
+
+    # config 4 launches 10 dBm: 6 dB below config 2's field
+    A4 = torch.stack([A0, A0]) * float(np.float32(10 ** (-6 / 20) / 2**0.5))
+    saves.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        PropagationCheckpointer.save = timed_save
+        try:
+            kernels.reset_launches()
+            full4, t_full4 = wall(lambda: runtime.span_chain_resumable(
+                A4, apply_span, 4, os.path.join(tmp, "full"),
+                dict(physics="config 4 spans")))
+            launches_chain = dict(kernels.LAUNCHES)
+        finally:
+            PropagationCheckpointer.save = plain_save
+        undo = dying_save(2)
+        try:
+            runtime.span_chain_resumable(A4, apply_span, 4, os.path.join(
+                tmp, "crash"), dict(physics="config 4 spans"))
+            fail(15, "the span chain was not killed")
+        except RuntimeError as exc:
+            check("killed after a save" in str(exc), 15, str(exc))
+        finally:
+            undo()
+        resumed4 = runtime.span_chain_resumable(
+            A4, apply_span, 4, os.path.join(tmp, "crash"),
+            dict(physics="config 4 spans"))
+    (_, t_nockpt4) = wall(lambda: functools.reduce(
+        apply_span, range(4), A4))
+    check(torch.equal(resumed4, full4), 15,
+          "the resumed span chain differs from the uninterrupted one")
+    check(bool(torch.isfinite(torch.view_as_real(full4)).all())
+          and full4.shape == (2, n), 15, "span chain output")
+    check(launches_chain["nl_halfstep"] == 4 * 4 * 6
+          and launches_chain["cmul"] == 4 * 4 * 3, 15,
+          f"launches {launches_chain}")
+    print(f"phase 15 span_chain_resumable (4 x 80 km o4 spans, (2, 2^24)): "
+          f"ok killed after 2 saves and resumed bit-equal; launches "
+          f"{launches_chain}; wall {t_full4:.3f} s with checkpoints, "
+          f"{t_nockpt4:.3f} s without; {saves[0][1]} bytes a file, median "
+          f"{statistics.median(t for t, _ in saves):.3f} s a save",
+          flush=True)
+    del full4, resumed4, A4, phi_w4
+
+    # ---- phase 16: the sharded fiber at world size 1 over NCCL ----
+    import torch.distributed as dist
+
+    from opticomlib_tpu_torch import devices as D, gv
+    from opticomlib_tpu_torch.parallel import (initialize_multihost,
+                                               make_link_mesh, ssfm_sharded)
+    from opticomlib_tpu_torch.parallel.fiber import ShardedField
+    from opticomlib_tpu_torch.signals import OpticalSignal
+
+    gv.default()  # no device named: the card
+    rendezvous = tempfile.TemporaryDirectory()  # kept until the group ends
+    world = initialize_multihost(f"file://{rendezvous.name}/rendezvous", 1,
+                                 0, timeout_s=120)
+    check(world == 1 and dist.get_backend() == "nccl", 16,
+          f"world {world}, backend {dist.get_backend()}")
+    mesh = make_link_mesh(1, 1)
+    check(mesh.device.type == "cuda" and mesh.shape == {"wdm": 1, "time": 1},
+          16, f"{mesh!r}")
+    base = dict(alpha=0.2, beta_2=-21.0, gamma=1.3)
+    o4 = dict(alpha=span4.alpha, beta_2=span4.beta_2, gamma=span4.gamma)
+    # the unsharded call builds its phase grid on the host every time (most
+    # of its wall time); its steps alone, on a phase grid kept on the card as
+    # the sharded solver keeps its own, are timed beside it
+    phi_dev = torch.as_tensor(ssfm.dispersion_phase(w, -21.0, 0.0), device=dev)
+    a_km = ssfm.alpha_per_km(0.2)
+
+    def steps_adaptive():
+        with np.errstate(divide="ignore"):
+            h0 = min(np.float32(0.01) / (np.float32(1.3) * ssfm.max_power(A0)),
+                     np.float32(50.0))
+        return ssfm.ssfm_while_inside(A0, phi_dev, 50.0, 1.3, 0.01, h0, a_km,
+                                      adaptive=True)
+
+    def steps_fixed():
+        return ssfm.ssfm_scan_inside(A0, phi_dev, ssfm.ssfm_step_schedule(
+            50.0, 1.0), 1.3, a_km)
+
+    sharded_cases = {
+        # name: (ssfm_sharded keywords, the unsharded call, its steps alone,
+        # tolerance / peak)
+        "pencil_adaptive": (
+            dict(length=50.0, h=None, phi_max=0.01, **base),
+            lambda: ssfm.ssfm_propagate(A0, w, 50.0, phi_max=0.01, **base),
+            steps_adaptive, 5e-4),
+        "pencil_fixed": (
+            dict(length=50.0, h=1.0, **base),
+            lambda: ssfm.ssfm_propagate(A0, w, 50.0, h=1.0, **base),
+            steps_fixed, 5e-4),
+        "overlap_fixed": (
+            dict(length=50.0, h=1.0, method="overlap", **base),
+            lambda: ssfm.ssfm_propagate(A0, w, 50.0, h=1.0, **base),
+            steps_fixed, 5e-3),
+        "o4_fixed": (
+            dict(length=80.0, h=20.0, scheme="o4", **o4),
+            lambda: ssfm.ssfm_scan_o4(A0, w, 80.0, h=20.0, **o4),
+            lambda: ssfm.ssfm_o4_scan_inside(
+                A0, phi_dev, ssfm.ssfm_step_schedule(80.0, 20.0), 1.3, a_km),
+            5e-4),
+    }
+    # a tensor that lies elsewhere than the mesh computes is refused, not
+    # moved
+    try:
+        ssfm_sharded(A0.cpu(), mesh, fs=params.fs, length=1.0, h=1.0, **base)
+        fail(16, "a CPU tensor on a mesh of cards did not raise")
+    except ValueError as e:
+        check("initialize_multihost(device=" in str(e), 16, str(e))
+    launches_sharded, lines16 = {}, []
+    for name, (kw, unsharded, steps_alone, tol_peak) in sharded_cases.items():
+        ssfm_sharded(A0, mesh, fs=params.fs, **kw)  # plans, twiddles, warm-up
+        unsharded()
+        kernels.reset_launches()
+        out, t_sh = wall(lambda: ssfm_sharded(A0, mesh, fs=params.fs, **kw))
+        launches_sharded[name] = dict(kernels.LAUNCHES)
+        (ref, steps_ref), t_un = wall(unsharded)
+        _, t_alone = wall(steps_alone)
+        check(isinstance(out, ShardedField) and out.local.device == A0.device
+              and out.shape == (n,), 16, f"{name}: {out!r}")
+        check(out.n_steps == steps_ref, 16,
+              f"{name}: {out.n_steps} steps, unsharded {steps_ref}")
+        e16 = float((out.local - ref).abs().max() / ref.abs().max())
+        check(e16 <= tol_peak, 16, f"{name}: max abs err / peak {e16:.3g} > "
+              f"{tol_peak}")
+        check(launches_sharded[name]["nl_halfstep"] > 0
+              and launches_sharded[name]["cmul"] > 0, 16,
+              f"{name}: launches {launches_sharded[name]}")
+        lines16.append(f"{name} {out.n_steps} steps, err/peak {e16:.2g}, "
+                       f"{t_sh:.3f} s vs unsharded {t_un:.3f} s (its steps "
+                       f"alone {t_alone:.3f} s), launches "
+                       f"nl_halfstep {launches_sharded[name]['nl_halfstep']} "
+                       f"cmul {launches_sharded[name]['cmul']}")
+        if name == "pencil_adaptive":
+            host = np.asarray(out)  # the gather, a collective
+            check(host.shape == (n,) and np.array_equal(
+                host, out.local.cpu().numpy()), 16, "gather at world size 1")
+            del host
+        del out, ref
+    print("phase 16 sharded fiber, world size 1 over NCCL (2^24 samples): ok "
+          + "; ".join(lines16), flush=True)
+    # the staged drop-in, gv with no device named
+    gv(sps=SPS, R=R, N=N_BITS)
+    x = OpticalSignal(A0)
+    kw = dict(length=50, phi_max=0.01, **base)
+    D.FIBER(x, mesh=mesh, **kw)
+    kernels.reset_launches()
+    o1, t_mesh = wall(lambda: D.FIBER(x, mesh=mesh, **kw))
+    launches_sharded["fiber_mesh"] = dict(kernels.LAUNCHES)
+    o_plain, t_plain = wall(lambda: D.FIBER(x, **kw))
+    check(isinstance(o1.signal, ShardedField) and o1.device.type == "cuda",
+          16, f"FIBER(mesh=) payload {type(o1.signal).__name__}")
+    check(o1.n_steps == o_plain.n_steps == PINNED["n_steps"], 16,
+          f"FIBER(mesh=) {o1.n_steps} steps, FIBER {o_plain.n_steps}")
+    e16 = float((o1.signal.local - o_plain.signal).abs().max()
+                / o_plain.signal.abs().max())
+    check(e16 <= 5e-4, 16, f"FIBER(mesh=): max abs err / peak {e16:.3g}")
+    o2 = D.FIBER(o1, mesh=mesh, **kw)  # the payload stays where it lies
+    check(isinstance(o2.signal, ShardedField) and o2.to_numpy().shape == (n,),
+          16, "chained FIBER(mesh=)")
+    try:
+        D.FIBER(x, mesh=mesh, return_steps=True, **kw)
+        fail(16, "FIBER(mesh=, return_steps=True) did not raise")
+    except ValueError:
+        pass
+    gv.default()
+    print(f"phase 16 FIBER(mesh=) through gv, no device named: ok "
+          f"{o1.n_steps} steps, err/peak {e16:.2g}, {t_mesh:.3f} s vs FIBER "
+          f"{t_plain:.3f} s; launches {launches_sharded['fiber_mesh']}",
+          flush=True)
+    dist.destroy_process_group()
+    rendezvous.cleanup()
+    del o1, o2, o_plain, x, A0, straight, whole, phi_dev
+
+    # ---- phase 17: profiling ----
+    import glob
+
+    from opticomlib_tpu_torch.utils import profiling
+
+    prog = link.build_link(spec, N_BITS, params, device=dev)
+    bits = prbs(15, length=N_BITS)[0]
+    prog.dsp(bits=bits, seed=3)
+    plain_fiber = prog._fiber
+
+    def annotated_fiber(*a, **kw):
+        with profiling.annotate("ssfm"):
+            return plain_fiber(*a, **kw)
+
+    prog._fiber = annotated_fiber
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            d = prog.dsp(bits=bits, seed=3)
+        files = glob.glob(os.path.join(tmp, "trace_*.json"))
+        check(len(files) == 1, 17, f"trace files {files}")
+        trace_bytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+    prog._fiber = plain_fiber
+    check("ssfm" in names, 17, "the region's name is not in the trace")
+    check(any("_nl_halfstep_kernel" in str(nm) for nm in names), 17,
+          "nl_halfstep's kernel is not in the trace")
+    check(any("cmul" in str(nm) for nm in names), 17,
+          "cmul's kernel is not in the trace")
+    check(d.n_steps == (PINNED["n_steps"],), 17, f"n_steps {d.n_steps}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profiling.DeviceTimer(dev) as timer:
+        start.record()
+        d = prog.dsp(bits=bits, seed=3)
+        end.record()
+        timer.sync(prog.H2_pd)
+    ev_ms = start.elapsed_time(end)
+    check(abs(timer.elapsed * 1e3 - ev_ms) <= 0.05 * ev_ms, 17,
+          f"DeviceTimer {timer.elapsed * 1e3:.3f} ms vs CUDA events "
+          f"{ev_ms:.3f} ms")
+    print(f"phase 17 profiling (config 2 dsp, 2^24 samples): ok trace "
+          f"{trace_bytes} bytes, {len(names)} event names with the 'ssfm' "
+          f"region, _nl_halfstep_kernel and cmul in it; DeviceTimer "
+          f"{timer.elapsed * 1e3:.3f} ms vs CUDA events {ev_ms:.3f} ms",
+          flush=True)
+    del prog, d
+
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,
                "config3_soft": launches3s, "config5": launches5,
                "config5_defined": launches5d, "wdm_ppm": launches_wp,
-               "eye": launches_eye}
+               "eye": launches_eye, "resumable": launches_res,
+               "span_chain": launches_chain,
+               **{"sharded_" + k: v for k, v in launches_sharded.items()}}
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},

@@ -1,7 +1,7 @@
 """opticomlib_tpu_torch — the optical-link simulator on PyTorch and CUDA.
 
 A port of ``opticomlib_tpu`` (JAX) to PyTorch for NVIDIA Hopper cards, slice
-by slice.  It holds two surfaces:
+by slice.  It holds two surfaces, and the runtimes around the fiber:
 
 * the fused link (``link.build_link`` -> ``LinkProgram.dsp``, ``eye``,
   ``dsp_ppm``, and the WDM sweeps ``dsp_wdm`` / ``dsp_wdm_ppm``): PRBS ->
@@ -12,7 +12,11 @@ by slice.  It holds two surfaces:
 * the staged drop-in API of the reference: ``gv``, the signal classes,
   ``devices`` (``PRBS`` ... ``SAMPLER``), ``ook`` and ``ppm`` (``DSP``,
   ``BER_analizer``), on ``gv``'s device (the card by default;
-  ``gv(device="cpu")`` asks for the CPU).
+  ``gv(device="cpu")`` asks for the CPU);
+* :mod:`~opticomlib_tpu_torch.runtime` (checkpoint and resume of long
+  propagations), :mod:`~opticomlib_tpu_torch.parallel` (the split-step
+  fiber sharded over ``torch.distributed`` ranks, ``FIBER(mesh=...)``) and
+  :mod:`~opticomlib_tpu_torch.utils.profiling`.
 
 Its pointwise split-step passes, the DAC's pulse shaping, its ADC and its
 receiver histogram are hand-written kernels

@@ -17,6 +17,13 @@ state across: a JAX ``BinarySequence`` / ``ElectricalSignal`` /
 noise and polarizations kept, and the JAX ``gv``'s parameters become the
 port's.  Both read the JAX objects by their attributes, so the port imports
 nothing of JAX.
+
+:func:`sharded_from_jax` and :func:`sharded_to_jax` carry the sharded
+solver's state across: the JAX package saves a sharded field as stacked
+NumPy blocks ``re``, ``im`` with their global bounds
+``extra["indices"]`` (a process's addressable shards; the payload of its
+``shard=`` checkpoints), or as the whole field; the port's counterpart is a
+:class:`~opticomlib_tpu_torch.parallel.fiber.ShardedField`.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 
 from . import params, signals
 
-__all__ = ["consts_from_jax", "signal_from_jax", "gv_from_jax"]
+__all__ = ["consts_from_jax", "signal_from_jax", "gv_from_jax",
+           "sharded_from_jax", "sharded_to_jax"]
 
 
 def consts_from_jax(consts: dict) -> dict:
@@ -83,3 +91,68 @@ def gv_from_jax(gv):
         sps=int(p.sps), R=float(p.R), fs=float(p.fs), N=int(p.N),
         wavelength=float(p.wavelength))
     return params.gv
+
+
+def _bounds(idx, shape):
+    """JAX-side block bounds (``-1`` for an open stop) as explicit
+    ``[start, stop]`` pairs."""
+    return [[int(a), int(shape[d]) if b < 0 else int(b)]
+            for d, (a, b) in enumerate(idx)]
+
+
+def sharded_from_jax(re, im, indices, mesh, shape=None, wdm_axis="wdm"):
+    """The port's ``ShardedField`` on ``mesh`` from a JAX-side payload.
+
+    ``re``, ``im``: with ``indices`` (``extra["indices"]`` of a ``shard=``
+    checkpoint: one ``[[start, stop], ...]`` a block, a stop of ``-1``
+    meaning the end), the stacked blocks ``(k, ...)`` of the global field of
+    ``shape``; this rank keeps the block with its own bounds and raises
+    ``KeyError`` when the payload does not hold it.  With ``indices=None``,
+    the whole field (a single-process checkpoint), of which this rank
+    slices its block."""
+    from .parallel.fiber import ShardedField, shard_waveform
+
+    re, im = np.asarray(re, np.float32), np.asarray(im, np.float32)
+    if indices is None:
+        return shard_waveform((re + 1j * im).astype(np.complex64), mesh,
+                              wdm_axis)
+    if shape is None:
+        raise ValueError("a payload of blocks needs the global shape")
+    shape = tuple(int(s) for s in shape)
+    layout = wdm_axis if len(shape) == 2 else None
+    mine = ShardedField.block_indices(mesh, shape, layout)
+    for k, idx in enumerate(indices):
+        if _bounds(idx, shape) == mine:
+            block = (re[k] + 1j * im[k]).astype(np.complex64)
+            return ShardedField(torch.as_tensor(block, device=mesh.device),
+                                mesh, shape, layout)
+    raise KeyError(f"no block with bounds {mine} among {list(indices)}")
+
+
+def sharded_to_jax(field):
+    """``(re, im, {"indices": [...]})``: every block of a ``ShardedField``
+    stacked ``(k, ...)`` in the order of their bounds, as float32 NumPy
+    arrays, with the bounds in the JAX package's form (a dimension held
+    whole is ``[0, -1]``): what its ``_assemble_from_host_shards`` rebuilds a
+    global array from.  Gathers the field (a collective every rank of the
+    mesh calls)."""
+    from .parallel.fiber import ShardedField
+
+    whole = field.gather()
+    mesh, shape = field.mesh, field.shape
+    rows_whole = len(shape) == 2 and not field.wdm_axis
+    # rows held whole are the same block on every 'wdm' row: one is enough
+    blocks = {}
+    for i in range(1 if rows_whole else mesh.shape["wdm"]):
+        for j in range(mesh.shape["time"]):
+            idx = ShardedField.block_indices(
+                mesh, shape, field.wdm_axis, {"wdm": i, "time": j})
+            block = whole[tuple(slice(a, b) for a, b in idx)]
+            if rows_whole:
+                idx[0] = [0, -1]
+            blocks[tuple(map(tuple, idx))] = block
+    keys = sorted(blocks)
+    stacked = np.stack([blocks[k] for k in keys])
+    return (np.ascontiguousarray(stacked.real),
+            np.ascontiguousarray(stacked.imag),
+            {"indices": [[list(pair) for pair in k] for k in keys]})

@@ -26,7 +26,7 @@ Device inventory (reference file:line): PRBS 63-182, DAC 185-350, LASER
 353-510, PM 513-617, MZM 620-785, BPF 788-826, EDFA 829-942, DM 945-1035,
 FIBER 1038-1206, DBP 1209-1283, LPF 1286-1375, PD 1378-1555, ADC 1558-1632,
 GET_EYE 1635-1868, SAMPLER 1871-1891.  ``FBG``, the fiber animations and
-``FIBER(return_steps=True)`` are not ported yet, nor ``FIBER(mesh=...)``.
+``FIBER(return_steps=True)`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -442,11 +442,21 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     ``nl_halfstep`` and ``cmul`` kernels (:mod:`opticomlib_tpu_torch.ops.
     ssfm`).
 
+    ``mesh``: a mesh of ranks with a 'time' axis (and 'wdm';
+    :func:`opticomlib_tpu_torch.parallel.make_link_mesh`): the sample axis
+    is sharded across it and propagated by
+    :func:`opticomlib_tpu_torch.parallel.fiber.ssfm_sharded`, adaptive
+    (``h=None``, one all-reduce(max) a step) or fixed-step, with any of the
+    three ``method`` schemes.  Every rank makes the same call on the same
+    input.  ``shard_method``: ``'pencil'`` (exact distributed FFT),
+    ``'overlap'`` (halo exchange, approximate) or ``'auto'``.  The output's
+    payload stays on its ranks (a ``ShardedField``): the next
+    ``FIBER(mesh=...)`` takes it as it is, ``to_numpy()`` gathers it.
+
     Returns a complex64 :class:`OpticalSignal` whose ``n_steps`` attribute
     is the number of steps taken (attempted, for the step-doubling
-    schemes).  Not ported yet: ``return_steps=True`` and ``mesh=``
-    (``shard_method`` is then unused); ``show_progress`` warns and runs
-    without a progress bar.
+    schemes).  Not ported yet: ``return_steps=True``; ``show_progress``
+    warns and runs without a progress bar.
     """
     tic()
     if not isinstance(input, OpticalSignal):
@@ -455,9 +465,33 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
         raise ValueError(
             "`method` must be 'reference', 'o4' or 'local_error'.")
     if mesh is not None:
-        toc()
-        raise NotImplementedError(
-            "FIBER(mesh=...) is not ported yet (the parallel runtimes)")
+        if return_steps:
+            toc()
+            raise ValueError("mesh= does not support return_steps")
+        from .parallel.fiber import ShardedField, ssfm_sharded
+
+        # a ShardedField payload (the previous FIBER(mesh=) output) goes
+        # straight back to the sharded solver, each block where it lies
+        if isinstance(input.signal, ShardedField):
+            if _has_noise(input.noise):
+                toc()
+                raise ValueError("a sharded signal with a noise track: "
+                                 "gather it (to_numpy) first")
+            A = input.signal
+        else:
+            A = input._total()
+        wdm_axis = ("wdm" if A.ndim == 2
+                    and A.shape[0] % mesh.shape["wdm"] == 0 else None)
+        out = ssfm_sharded(
+            A, mesh, fs=gv.fs, length=float(length), alpha=float(alpha),
+            beta_2=float(beta_2), beta_3=float(beta_3), gamma=float(gamma),
+            h=None if h is None else float(h), phi_max=float(phi_max),
+            method=shard_method, wdm_axis=wdm_axis, scheme=method,
+            tol=float(tol))
+        output = OpticalSignal(out, n_pol=input.n_pol)
+        output.n_steps = out.n_steps
+        output.execution_time = toc()
+        return output
     if return_steps:
         toc()
         if method != "reference":

@@ -12,8 +12,8 @@ operations are the JAX program's; what differs:
 * ``LinkProgram`` is an ``nn.Module`` whose spectral constants (``Hp``,
   ``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``, ``df_phase``) are
   registered buffers in complex64 / float32 on the device given to
-  :func:`build_link`, named as the JAX program names its constants.  There
-  is no default device.
+  :func:`build_link` (default: ``gv``'s device, the card), named as the JAX
+  program names its constants.
 * Noise draws come from a ``torch.Generator`` on that device, seeded by
   ``seed=``.  Torch cannot reproduce JAX's threefry keys, so ``forward``,
   ``run`` and ``dsp`` take ``noise=``, a dict of unit-normal draws consumed
@@ -64,7 +64,8 @@ from .ops.eyeana import (_shortest_int_masked, eye_metrics, eye_window,
                          linspace)
 from .ops.noise import ase_sigma, gaussian, wiener_phase
 from .ops.prbs import prbs
-from .params import SimParams
+from .params import SimParams, check_device, current_device, resolve_params
+from .signals import BinarySequence, ElectricalSignal
 from .utils.analysis import idb, idbm
 
 __all__ = ["FiberSpec", "DBPSpec", "EDFASpec", "DMSpec", "BPFSpec",
@@ -690,28 +691,64 @@ class LinkProgram(torch.nn.Module):
 
     # ---- host conveniences ----
     def _bits(self, bits, prbs_order: int):
+        """``bits`` (an array, a ``BinarySequence``; default a PRBS of
+        ``prbs_order``) as the transmitted ``BinarySequence`` and as the
+        float32 tensor :meth:`forward` takes."""
         if bits is None:
             bits = prbs(prbs_order, length=self.n_bits)[0]
-        bits = np.asarray(bits).reshape(-1)
-        if bits.size != self.n_bits:
-            raise ValueError(f"need {self.n_bits} bits, got {bits.size}")
-        return bits.astype(np.uint8), torch.as_tensor(
-            bits.astype(np.float32), device=self.device)
+        tx = BinarySequence(np.asarray(bits).reshape(-1))
+        if tx.size != self.n_bits:
+            raise ValueError(f"need {self.n_bits} bits, got {tx.size}")
+        return tx, torch.as_tensor(tx.to_numpy(np.float32),
+                                   device=self.device)
+
+    def jitted(self, bits: torch.Tensor, seed: int = 0,
+               noise: Optional[dict] = None):
+        """``(bits_f32, seed) -> (v, slots, n_steps[, field], rin_ok)``: the
+        chain itself, tensors in and tensors out on the program's device,
+        with no host convenience around it.  This is :meth:`forward` without
+        autograd, under the name the JAX program gives its compiled entry
+        (``LinkProgram.jitted``; its ``fn`` is :meth:`forward`).  ``bits``:
+        a float32 tensor of ``n_bits`` zeros and ones on the program's
+        device."""
+        with torch.no_grad():
+            return self(bits, seed=seed, noise=noise)
 
     @torch.no_grad()
     def run(self, bits=None, seed: int = 0, prbs_order: int = 9,
             noise: Optional[dict] = None):
-        """Run the chain on ``bits`` (default: a PRBS of ``prbs_order``).
-        Returns a namespace with ``tx`` (uint8 bits), ``v`` and ``slots``
-        (tensors on the device), ``n_steps``, ``rin_ok`` (False when a RIN
-        draw was clamped; it also warns) and, for a program built with
-        ``return_field=True``, ``field``."""
+        """Run the chain on ``bits`` (an array or ``BinarySequence`` of
+        length ``n_bits``; default: a PRBS of ``prbs_order``).  Returns a
+        namespace with ``tx`` (``BinarySequence``), ``v``
+        (``ElectricalSignal``, the filtered photodiode voltage, on the
+        program's device) and ``slots`` (``ElectricalSignal``, its slot
+        samples), ``program``, ``n_steps``, ``rin_ok`` (False when a RIN
+        draw was clamped; it also warns), for a program built with
+        ``return_field=True`` ``field`` (a tensor), and the helpers
+        ``decide(threshold) -> BinarySequence`` and ``ber(threshold=None)``
+        (``GET_EYE`` + ``THRESHOLD_EST`` under the current ``gv`` when no
+        threshold is given)."""
         tx, bits_f32 = self._bits(bits, prbs_order)
         out = self(bits_f32, seed=seed, noise=noise)
-        rin_ok = _rin_ok(out[-1])
-        return SimpleNamespace(
-            tx=tx, v=out[0], slots=out[1], n_steps=out[2], rin_ok=rin_ok,
+        slots = out[1]
+        ns = SimpleNamespace(
+            tx=tx, v=ElectricalSignal(out[0]), slots=ElectricalSignal(slots),
+            program=self, n_steps=out[2], rin_ok=_rin_ok(out[-1]),
             **({"field": out[3]} if self.return_field else {}))
+
+        def decide(threshold: float) -> BinarySequence:
+            return BinarySequence((slots > threshold).to(torch.uint8))
+
+        def ber(threshold: Optional[float] = None) -> float:
+            if threshold is None:
+                from .devices import GET_EYE
+                from .models.ook import THRESHOLD_EST
+                threshold = THRESHOLD_EST(GET_EYE(
+                    ns.v, nslots=min(8192, self.n_bits)))
+            return float(np.mean(decide(threshold).data != tx.data))
+
+        ns.decide, ns.ber = decide, ber
+        return ns
 
     @torch.no_grad()
     def dsp(self, bits=None, seed: int = 0, prbs_order: int = 9,
@@ -721,8 +758,8 @@ class LinkProgram(torch.nn.Module):
         receiver stage a reduction on the device and only scalars read back
         (mirrors ``models.ook.DSP`` + ``BER_analizer('counter')``).
         Returns a namespace with ``ber``, ``n_errors``, ``threshold``,
-        ``eye`` (an :class:`Eye` without traces), ``tx``, ``n_steps`` and
-        ``rin_ok``."""
+        ``eye`` (an :class:`Eye` without traces), ``tx`` (the transmitted
+        ``BinarySequence``), ``n_steps`` and ``rin_ok``."""
         tx, bits_f32 = self._bits(bits, prbs_order)
         out = self(bits_f32, seed=seed, noise=noise)
         m, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
@@ -805,17 +842,17 @@ class LinkProgram(torch.nn.Module):
           slot, ``noise["hdd"]`` or a draw keyed by ``seed``.
 
         Only ``n_errors``, the threshold and the eye scalars are read
-        back."""
+        back; ``tx`` is the information bits as a ``BinarySequence``."""
         decision, k, n_sym = self._ppm_shape(M, decision)
         if bits is None:
             bits = prbs(prbs_order, length=n_sym * k)[0]
-        tx = np.asarray(bits).reshape(-1).astype(np.uint8)
+        tx = BinarySequence(np.asarray(bits).reshape(-1))
         if tx.size != n_sym * k:
             raise ValueError(
                 f"need {n_sym * k} information bits for {n_sym} symbols "
                 f"of M={M}, got {tx.size}")
         slots_tx = PPM_ENCODER(tx, M)
-        info = torch.as_tensor(tx, device=self.device)
+        info = torch.as_tensor(tx.data, device=self.device)
         out = self(torch.as_tensor(slots_tx.data.astype(np.float32),
                                    device=self.device), seed=seed,
                    noise=noise)
@@ -992,18 +1029,17 @@ def _rin_ok(flag: torch.Tensor) -> bool:
     return ok
 
 
-def build_link(spec: LinkSpec, n_bits: int, params: SimParams, *,
-               device, return_field: bool = False) -> LinkProgram:
-    """Build the link described by ``spec`` for ``n_bits`` slots at
-    ``params`` on ``device`` (``"cuda"``, ``"cuda:1"``, ``"cpu"``...).  A
-    CUDA device with no card present raises: there is no CPU fallback.
-    ``return_field=True`` adds the optical field before the photodiode to
-    the program's outputs."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"build_link(device={str(device)!r}): no CUDA device is "
-            "available (torch.cuda.is_available() is False); pass "
-            "device='cpu' to run on the CPU")
-    return LinkProgram(spec, n_bits, params, device,
+def build_link(spec: LinkSpec, n_bits: int,
+               params: Optional[SimParams] = None,
+               return_field: bool = False, *, device=None) -> LinkProgram:
+    """Build the link described by ``spec`` for ``n_bits`` slots at the
+    given (default: ``gv``'s current) simulation parameters on ``device``
+    (``"cuda"``, ``"cuda:1"``, ``"cpu"``...; default: ``gv``'s device, the
+    card unless ``gv(device=...)`` says otherwise).  A CUDA device with no
+    card present raises: there is no CPU fallback.  ``return_field=True``
+    adds the optical field before the photodiode to the program's outputs.
+    The sharded and pipelined programs (``mesh=``, ``span_mesh=``) are not
+    ported yet."""
+    device = current_device() if device is None else check_device(device)
+    return LinkProgram(spec, n_bits, resolve_params(params), device,
                        return_field=return_field)

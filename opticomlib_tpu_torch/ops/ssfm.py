@@ -23,6 +23,14 @@ so the step counts match the JAX package's.  The adaptive loops read back
 once per step (``max|A|^2``, or the two error norms of a step-doubling
 attempt): the read-back decides ``h`` and termination.
 
+The ``*_inside`` loops take the hooks the sharded solver
+(:mod:`opticomlib_tpu_torch.parallel.fiber`) hangs on: ``reduce_max`` /
+``reduce_sum`` (a collective applied to the device scalar *before* it is
+read back, so every rank reads the same float32 and takes the same steps),
+``linear_step`` / ``spectral`` (the linear substep through a distributed
+transform) and ``h_max`` (a cap on the adaptive step).  With no hook given a
+loop computes what it computed without them, bit for bit.
+
 The staged wrappers (:func:`ssfm_propagate`, :func:`ssfm_scan_o4`,
 :func:`ssfm_o4_auto`, :func:`ssfm_local_error`; what ``devices.FIBER``
 runs) take a complex field tensor and the angular-frequency axis, and
@@ -38,7 +46,8 @@ import torch
 
 from . import kernels
 
-__all__ = ["dispersion_phase", "alpha_per_km", "adaptive_h0",
+__all__ = ["linear_operator", "dispersion_phase", "alpha_per_km",
+           "adaptive_h0",
            "ssfm_step_schedule", "max_power", "ssfm_while_inside",
            "ssfm_scan_inside", "ssfm_o4_scan_inside", "ssfm_o4_auto_inside",
            "ssfm_local_error_inside", "ssfm_propagate", "ssfm_scan_o4",
@@ -48,6 +57,17 @@ _LOG10E_X10 = 4.342944819032518  # 10*log10(e): dB/km -> 1/km divisor
 _MAX_STEPS = 400_000  # runaway backstop, as in the JAX loop
 
 f32 = np.float32
+
+
+def linear_operator(w_rad_s: np.ndarray, alpha_db_km: float, beta2: float,
+                    beta3: float) -> np.ndarray:
+    """Frequency-domain linear operator ``D(w) = -alpha/2 + i*beta2/2*w^2 +
+    i*beta3/6*w^3`` [1/km], natural FFT order, complex64 (w in rad/ps, alpha
+    in 1/km from dB/km; reference devices.py:1137-1145)."""
+    w = np.asarray(w_rad_s, dtype=np.float64) * 1e-12  # rad/ps
+    alpha = alpha_db_km / _LOG10E_X10
+    D = -alpha / 2 + 1j * beta2 / 2 * w**2 + 1j * beta3 / 6 * w**3
+    return D.astype(np.complex64)
 
 
 def dispersion_phase(w_rad_s: np.ndarray, beta2: float,
@@ -108,29 +128,49 @@ def _nl_l_nl_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
     return kernels.cmul(A, H)
 
 
-def max_power(A: torch.Tensor) -> np.float32:
-    """``max|A|^2`` read back to the host (the per-step sync)."""
-    return f32(torch.view_as_real(A).square().sum(-1).max().item())
+def max_power(A: torch.Tensor, reduce_max=None) -> np.float32:
+    """``max|A|^2`` read back to the host (the per-step sync).
+    ``reduce_max``: a collective applied to the 0-d device value before the
+    read-back (the all-reduce(max) of a sharded waveform)."""
+    m = torch.view_as_real(A).square().sum(-1).max()
+    if reduce_max is not None:
+        m = reduce_max(m)
+    return f32(m.item())
 
 
 def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
-                      phi_max, h0, alpha, adaptive: bool):
+                      phi_max, h0, alpha, adaptive: bool, reduce_max=None,
+                      linear_step=None, h_max=None):
     """phi_max-adaptive (``adaptive=True``) or fixed-``h0`` split-step
     propagation over ``length`` km of ``A`` (complex64, last axis = time).
-    Returns ``(A, n_steps)``."""
+
+    ``reduce_max``: collective applied to the local ``max|A|^2`` (see
+    :func:`max_power`).  ``linear_step``: ``(A, h) -> A`` in place of the
+    single-FFT linear substep (the pencil or overlap-save transform of the
+    sharded solver; ``phi_w`` may then be ``None``).  ``h_max``: a hard cap
+    on the adaptive step (the overlap-save solver caps ``h`` at the size its
+    halo was derived for).  Returns ``(A, n_steps)``."""
     alpha, length, gamma = f32(alpha), f32(length), f32(gamma)
     phi_max, h0 = f32(phi_max), f32(h0)
     # minimum step: float32 z-accumulation stalls when h < ulp(z)
     h_floor = length * f32(1.5e-7)
     z, h, steps = f32(0.0), min(h0, length), 0
+    if h_max is not None:
+        h = min(h, f32(h_max))
     with np.errstate(divide="ignore"):
         while z < length and steps < _MAX_STEPS:
             z = z + h
-            A = _nl_l_nl_step(A, phi_w, alpha, h, gamma)
+            if linear_step is None:
+                A = _nl_l_nl_step(A, phi_w, alpha, h, gamma)
+            else:  # the same frozen-operator step around another transform
+                B, H = kernels.nl_halfstep(A, gamma * (h / f32(2)))
+                A = kernels.cmul(linear_step(B, h), H)
             if adaptive:
-                h_next = phi_max / (abs(gamma) * max_power(A))
+                h_next = phi_max / (abs(gamma) * max_power(A, reduce_max))
             else:
                 h_next = h0
+            if h_max is not None:
+                h_next = min(h_next, f32(h_max))
             h = max(min(h_next, length - z), h_floor)
             steps += 1
     return A, steps
@@ -161,41 +201,47 @@ _W0 = 1.0 - 2.0 * _W1
 
 def _strang_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
                  h: np.float32, gamma: np.float32,
-                 E: torch.Tensor = None) -> torch.Tensor:
+                 E: torch.Tensor = None, spectral=None) -> torch.Tensor:
     """True Strang step: kick, linear substep, kick at the magnitudes after
     the linear substep (genuinely 2nd order), so neither kick reuses the
-    other's rotation.  Pass ``E`` when it is precomputed for this ``h``."""
+    other's rotation.  Pass ``E`` when it is precomputed for this ``h``.
+    ``spectral``: ``(A, E) -> A`` in place of the single-FFT spectral
+    multiply (the sharded solver's pencil transform)."""
     coeff = gamma * (h / f32(2))
     A = kernels.nl_halfstep(A, coeff)[0]
     if E is None:
         E = _lin_factor(phi_w, alpha, h)
-    A = torch.fft.ifft(kernels.cmul(torch.fft.fft(A, dim=-1), E), dim=-1)
+    if spectral is None:
+        A = torch.fft.ifft(kernels.cmul(torch.fft.fft(A, dim=-1), E), dim=-1)
+    else:
+        A = spectral(A, E)
     return kernels.nl_halfstep(A, coeff)[0]
 
 
-def _o4_step(A, phi_w, alpha, h, gamma, E1=None, E0=None):
+def _o4_step(A, phi_w, alpha, h, gamma, E1=None, E0=None, spectral=None):
     """One 4th-order Yoshida step ``S4(h)``; ``E1``/``E0``: the linear
     factors of the ``w1 h`` and ``w0 h`` substeps when precomputed."""
     h1, h0 = h * f32(_W1), h * f32(_W0)
-    A = _strang_step(A, phi_w, alpha, h1, gamma, E1)
-    A = _strang_step(A, phi_w, alpha, h0, gamma, E0)
-    return _strang_step(A, phi_w, alpha, h1, gamma, E1)
+    A = _strang_step(A, phi_w, alpha, h1, gamma, E1, spectral)
+    A = _strang_step(A, phi_w, alpha, h0, gamma, E0, spectral)
+    return _strang_step(A, phi_w, alpha, h1, gamma, E1, spectral)
 
 
 def ssfm_o4_scan_inside(A: torch.Tensor, phi_w: torch.Tensor, hs, gamma,
-                        alpha) -> torch.Tensor:
+                        alpha, spectral=None) -> torch.Tensor:
     """Fixed-schedule 4th-order propagation over the float32 step sizes
     ``hs`` (3 Strang substeps, 3 FFT pairs and 6 kicks a step).  The two
-    linear factors of the leading step size are built once."""
+    linear factors of the leading step size are built once.  ``spectral``:
+    see :func:`_strang_step`."""
     alpha, gamma = f32(alpha), f32(gamma)
     hs = np.asarray(hs, dtype=np.float32)
     E1_0 = _lin_factor(phi_w, alpha, hs[0] * f32(_W1))
     E0_0 = _lin_factor(phi_w, alpha, hs[0] * f32(_W0))
     for h in hs:
         if h == hs[0]:
-            A = _o4_step(A, phi_w, alpha, h, gamma, E1_0, E0_0)
+            A = _o4_step(A, phi_w, alpha, h, gamma, E1_0, E0_0, spectral)
         else:
-            A = _o4_step(A, phi_w, alpha, h, gamma)
+            A = _o4_step(A, phi_w, alpha, h, gamma, spectral=spectral)
     return A
 
 
@@ -204,7 +250,7 @@ def _sq_norm(A: torch.Tensor) -> torch.Tensor:
 
 
 def _step_doubling_controller(A, length, h0, tol, attempt, rich_num,
-                              rich_den, grow):
+                              rich_den, grow, reduce_sum=None):
     """Step-doubling local-error control shared by the self-tuning schemes
     (port of ``ops/ssfm.py:_step_doubling_controller``, saturation guard
     included).  ``attempt(A, h) -> (u_c, u_f)``: one coarse step and two
@@ -218,7 +264,10 @@ def _step_doubling_controller(A, length, h0, tol, attempt, rich_num,
     by 30 %, the estimate is declared saturated (tol below the float32
     floor): h is restored to where the plateau began and every later step
     is accepted at that size.  Each attempt reads the two norms back (one
-    sync).  Returns ``(A, n_attempted_steps)``."""
+    sync).  ``reduce_sum``: a collective applied to the two local squared
+    norms, stacked in one tensor, before the read-back (one all-reduce an
+    attempt makes the control global on a sharded waveform).  Returns
+    ``(A, n_attempted_steps)``."""
     length, tol, grow = f32(length), f32(tol), f32(grow)
     rich_num, rich_den = float(f32(rich_num)), float(f32(rich_den))
     h_floor = length * f32(1.5e-7)
@@ -231,8 +280,10 @@ def _step_doubling_controller(A, length, h0, tol, attempt, rich_num,
         while z < length and steps < _MAX_STEPS:
             h = min(h, length - z)
             u_c, u_f = attempt(A, h)
-            err2, ref2 = torch.stack([_sq_norm(u_f - u_c),
-                                      _sq_norm(u_f)]).tolist()
+            norms = torch.stack([_sq_norm(u_f - u_c), _sq_norm(u_f)])
+            if reduce_sum is not None:
+                norms = reduce_sum(norms)
+            err2, ref2 = norms.tolist()
             delta = np.sqrt(f32(err2)) / max(np.sqrt(f32(ref2)), f32(1e-30))
             trip = rejects >= max_rejects and not saturated
             accept = bool(delta <= f32(2) * tol or h <= h_floor
@@ -262,39 +313,43 @@ def _step_doubling_controller(A, length, h0, tol, attempt, rich_num,
 
 
 def ssfm_o4_auto_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
-                        tol, h0, alpha):
+                        tol, h0, alpha, reduce_sum=None, spectral=None):
     """Self-tuning 4th-order propagation: Yoshida S4 steps under
     step-doubling control (Richardson ``(16 u_f - u_c)/15``, growth
-    ``2^(1/5)``; 9 FFT pairs an attempt).  Returns ``(A, n_attempts)``."""
+    ``2^(1/5)``; 9 FFT pairs an attempt).  ``reduce_sum``: see
+    :func:`_step_doubling_controller`; ``spectral``: see
+    :func:`_strang_step`.  Returns ``(A, n_attempts)``."""
     alpha, gamma = f32(alpha), f32(gamma)
 
+    def s4(A, h):
+        return _o4_step(A, phi_w, alpha, h, gamma, spectral=spectral)
+
     def attempt(A, h):
-        u_c = _o4_step(A, phi_w, alpha, h, gamma)
         half = h / f32(2)
-        u_f = _o4_step(_o4_step(A, phi_w, alpha, half, gamma), phi_w, alpha,
-                       half, gamma)
-        return u_c, u_f
+        return s4(A, h), s4(s4(A, half), half)
 
     return _step_doubling_controller(A, length, h0, tol, attempt, 16.0, 15.0,
-                                     2.0 ** (1.0 / 5.0))
+                                     2.0 ** (1.0 / 5.0), reduce_sum)
 
 
 def ssfm_local_error_inside(A: torch.Tensor, phi_w: torch.Tensor, length,
-                            gamma, tol, h0, alpha):
+                            gamma, tol, h0, alpha, reduce_sum=None,
+                            spectral=None):
     """Sinkin et al. (2003) local-error method: Strang steps under
     step-doubling control (Richardson ``(4 u_f - u_c)/3``, growth
-    ``2^(1/3)``; 3 FFT pairs an attempt).  Returns ``(A, n_attempts)``."""
+    ``2^(1/3)``; 3 FFT pairs an attempt).  ``reduce_sum`` and ``spectral``
+    as for :func:`ssfm_o4_auto_inside`.  Returns ``(A, n_attempts)``."""
     alpha, gamma = f32(alpha), f32(gamma)
 
+    def s2(A, h):
+        return _strang_step(A, phi_w, alpha, h, gamma, spectral=spectral)
+
     def attempt(A, h):
-        u_c = _strang_step(A, phi_w, alpha, h, gamma)
         half = h / f32(2)
-        u_f = _strang_step(_strang_step(A, phi_w, alpha, half, gamma), phi_w,
-                           alpha, half, gamma)
-        return u_c, u_f
+        return s2(A, h), s2(s2(A, half), half)
 
     return _step_doubling_controller(A, length, h0, tol, attempt, 4.0, 3.0,
-                                     2.0 ** (1.0 / 3.0))
+                                     2.0 ** (1.0 / 3.0), reduce_sum)
 
 
 # ----------------------------------------------------------------------

@@ -8,7 +8,11 @@
   scalars, strings) goes to ``gv``'s device (the card by default,
   ``gv(device="cpu")`` for the CPU).  Waveform-sized results stay tensors on that device;
   reductions (``power``, ``mean``, ``std``) and ``to_numpy`` come back to
-  the host.
+  the host.  The payload of ``FIBER(mesh=...)``'s output is a
+  :class:`~opticomlib_tpu_torch.parallel.fiber.ShardedField`: each rank
+  holds its block; the next ``FIBER(mesh=...)`` takes it where it lies and
+  ``to_numpy`` gathers it (a collective every rank calls).  The signal
+  algebra does not act on it.
 * "No noise" is the absorbing :data:`NULL` sentinel (reference
   typing.py:56-93): ``x + NULL == x``, ``x * NULL == NULL``, so noiseless
   paths cost nothing.
@@ -122,6 +126,13 @@ def _as_noise(noise):
     return noise if _has_noise(noise) else NULL
 
 
+def _is_sharded(value) -> bool:
+    """Whether ``value`` is a field spread over a mesh of ranks (the
+    ``ShardedField`` of :mod:`opticomlib_tpu_torch.parallel.fiber`, known
+    here only by its ``is_sharded`` mark)."""
+    return getattr(value, "is_sharded", False)
+
+
 def torch_dtype(dtype) -> Optional[torch.dtype]:
     """A NumPy dtype (or a torch dtype, or ``None``) as a torch dtype."""
     if dtype is None or isinstance(dtype, torch.dtype):
@@ -134,6 +145,10 @@ def _astensor(value, dtype=None, device=None) -> torch.Tensor:
     or from host data (str / scalars / array-likes), placed on ``device``
     (default: ``gv``'s device)."""
     dtype = torch_dtype(dtype)
+    if _is_sharded(value):
+        # the output of FIBER(mesh=): it stays on its ranks, for the next
+        # FIBER(mesh=) or a gather (``to_numpy``, a collective)
+        return value
     if isinstance(value, torch.Tensor):
         out = value if dtype is None else value.to(dtype)
         return out if device is None else out.to(device)
@@ -398,6 +413,8 @@ class ElectricalSignal:
             f"   time:       {si(self.execution_time, 's', 2)}\n")
 
     def __repr__(self):
+        if _is_sharded(self.signal):
+            return f"{self.__class__.__name__}({self.signal!r})"
         np.set_printoptions(precision=3, threshold=20)
         return f"{self.__class__.__name__}({self.signal.cpu().numpy()})"
 
@@ -410,7 +427,11 @@ class ElectricalSignal:
         return self.signal + self.noise
 
     def to_numpy(self, dtype=None, copy: bool = False) -> np.ndarray:
-        """``signal + noise`` as a host ndarray."""
+        """``signal + noise`` as a host ndarray (of a sharded payload: the
+        gathered field, a collective every rank calls)."""
+        if _is_sharded(self.signal):
+            return np.array(self.signal.gather(), dtype=dtype,
+                            copy=copy or None)
         data = self._total().detach().resolve_conj().cpu().numpy()
         return np.array(data, dtype=dtype, copy=copy or None)
 
@@ -720,6 +741,19 @@ class OpticalSignal(ElectricalSignal):
             sig = _astensor(signal, dtype)
             noi = (_astensor(noise, dtype, sig.device) if _has_noise(noise)
                    else NULL)
+
+        if _is_sharded(sig):
+            # FIBER(mesh=)'s output: kept as it lies, one row a polarization
+            if (_has_noise(noi) or n_pol not in (None, sig.ndim)
+                    or (sig.ndim == 2 and sig.shape[0] != 2)):
+                raise ValueError(
+                    f"a sharded payload is (n,) or (2, n), carries no noise "
+                    f"track and keeps its n_pol; got shape {sig.shape}, "
+                    f"n_pol={n_pol}")
+            self.n_pol = sig.ndim
+            self.signal, self.noise = sig, NULL
+            self.execution_time = 0.0
+            return
 
         if sig.ndim > 2 or (sig.ndim > 1 and sig.shape[0] > 2) \
                 or sig.numel() < 1:

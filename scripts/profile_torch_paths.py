@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's receiver paths goes, on one card.
 
-    python3 scripts/profile_torch_paths.py [hist] [config3] [config5] [eye]
+    python3 scripts/profile_torch_paths.py [hist] [config3] [config5] [eye] [sharded]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), one steady call
 (after one warm-up call) of each named path at the sizes of
@@ -9,10 +9,14 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activities), one steady call
 ``config5`` (``dsp_wdm(16)``, 16 x 2^24 samples), ``eye`` (config 2's
 ``LinkProgram.eye`` and ``dsp``, 2^24 samples); and ``hist``: twenty calls in
 a row of each histogram wrapper at (1, 4096) over 2^20 eye-like samples, by
-rows and by pairs, with the host time of the wrapper itself (``cProfile``).
+rows and by pairs, with the host time of the wrapper itself (``cProfile``);
+``sharded``: config 2's 50 km fiber at 2^24 samples through ``ssfm_sharded``
+at world size 1 over NCCL (pencil adaptive, pencil and overlap at a fixed
+1 km step) beside the unsharded steps on a phase grid kept on the card.
 For each it prints the wall time, the device's busy time and idle share
 (the union of the kernels' and copies' intervals against the wall time), and
-the device time by kernel name.  With no argument it profiles all four.
+the device time by kernel name.  With no argument it profiles the first
+four.
 Needs a CUDA card and ``nvcc``; prints the card's name and power limit first.
 """
 import cProfile
@@ -27,52 +31,24 @@ sys.path.insert(0, ROOT)
 os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
 
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from opticomlib_tpu_torch import link  # noqa: E402
 from opticomlib_tpu_torch.ops import kernels  # noqa: E402
 from opticomlib_tpu_torch.ops.prbs import prbs  # noqa: E402
 from opticomlib_tpu_torch.params import SimParams  # noqa: E402
+from opticomlib_tpu_torch.utils import profiling  # noqa: E402
 
 
 def profiled(label, fn, top=12):
-    """Profile one ``fn()`` (ended by a synchronise) after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for a, b in spans:  # union of the device intervals, in microseconds
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    print(f"{label}: wall {wall * 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms, idle {1 - busy / 1e6 / wall:.1%}, "
-          f"{len(spans)} device operations", flush=True)
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :top]:
-        print(f"    {t / 1e3:9.3f} ms {c:6d} x  {name[:90]}", flush=True)
+    """Profile one ``fn()`` after one warm-up; prints as it goes."""
+    return profiling.profiled(label, fn, top=top,
+                              out=lambda line: print(line, flush=True))
 
 
 def main():
     which = set(sys.argv[1:]) or {"hist", "config3", "config5", "eye"}
-    if not which <= {"hist", "config3", "config5", "eye"}:
+    if not which <= {"hist", "config3", "config5", "eye", "sharded"}:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -140,6 +116,42 @@ def main():
         profiled("config 2 eye", lambda: prog.eye(bits=bits, seed=3,
                                                   sps_resamp=128))
         profiled("config 2 dsp", lambda: prog.dsp(bits=bits, seed=3))
+
+    if "sharded" in which:
+        import tempfile
+
+        import numpy as np
+        import torch.distributed as dist
+
+        from opticomlib_tpu_torch.ops import ssfm
+        from opticomlib_tpu_torch.parallel import (initialize_multihost,
+                                                   make_link_mesh,
+                                                   ssfm_sharded)
+        params = SimParams.create(sps=cs.SPS, R=cs.R, _warn=False)
+        A0 = torch.polar(0.2 * torch.rand(2**24, generator=g, device="cuda"),
+                         torch.zeros(2**24, device="cuda")).contiguous()
+        w = 2 * np.pi * np.fft.fftfreq(2**24) * params.fs
+        phi = torch.as_tensor(ssfm.dispersion_phase(w, -21.0, 0.0),
+                              device="cuda")
+        a_km, fib = ssfm.alpha_per_km(0.2), dict(alpha=0.2, beta_2=-21.0,
+                                                 gamma=1.3)
+        hs = ssfm.ssfm_step_schedule(50.0, 1.0)
+        with tempfile.TemporaryDirectory() as tmp:
+            initialize_multihost(f"file://{tmp}/rendezvous", 1, 0)
+            mesh = make_link_mesh(1, 1)
+            h0 = min(np.float32(0.01) / (np.float32(1.3) * ssfm.max_power(
+                A0)), np.float32(50.0))
+            profiled("unsharded steps, adaptive", lambda: ssfm.ssfm_while_inside(
+                A0, phi, 50.0, 1.3, 0.01, h0, a_km, adaptive=True))
+            profiled("sharded pencil, adaptive", lambda: ssfm_sharded(
+                A0, mesh, params.fs, 50.0, h=None, phi_max=0.01, **fib))
+            profiled("unsharded steps, h = 1 km", lambda: ssfm.ssfm_scan_inside(
+                A0, phi, hs, 1.3, a_km))
+            profiled("sharded pencil, h = 1 km", lambda: ssfm_sharded(
+                A0, mesh, params.fs, 50.0, h=1.0, **fib))
+            profiled("sharded overlap, h = 1 km", lambda: ssfm_sharded(
+                A0, mesh, params.fs, 50.0, h=1.0, method="overlap", **fib))
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -182,7 +182,7 @@ def eye_window_bins(dev):
                                gamma=1.3), link.EDFASpec(G=10, NF=5)))
     prog = link.build_link(spec, 2**14, SimParams.create(
         sps=64, R=10e9, _warn=False), device=dev)
-    v = prog.run(bits=prbs(15, length=2**14)[0], seed=3).v
+    v = prog.run(bits=prbs(15, length=2**14)[0], seed=3).v.signal
     caught, wrapper = [], kernels.histogram_rows
     kernels.histogram_rows = lambda y, ny: caught.append(y) or wrapper(y, ny)
     try:

@@ -227,7 +227,7 @@ def test_link_on_card_matches_cpu(cuda_device):
                          prog.dsp(bits=bits, noise=noise))
     (rg, dg), (rc, dc) = out["cuda"], out["cpu"]
     assert rg.n_steps == rc.n_steps
-    v_g, v_c = rg.v.cpu().numpy(), rc.v.numpy()
+    v_g, v_c = rg.v.to_numpy(), rc.v.to_numpy()
     assert np.linalg.norm(v_g - v_c) / np.linalg.norm(v_c) <= 1e-4
     assert dg.n_errors == dc.n_errors
     assert abs(dg.threshold - dc.threshold) <= abs(
@@ -343,3 +343,210 @@ def test_staged_chain_on_card_matches_cpu(cuda_device):
     assert np.array_equal(rg, rc)
     assert kernels.LAUNCHES["fir_filter"] >= 1
     assert kernels.LAUNCHES["nl_halfstep"] >= sg
+
+
+# ---------------------------------------------------------------------------
+# the resumable and the sharded fiber, and the profiling hooks, on the card
+# ---------------------------------------------------------------------------
+def _launch_field(n, seed, device):
+    """An NRZ-like band-limited field of peak power ~0.04 W."""
+    from scipy.ndimage import gaussian_filter1d
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, n // 16).astype(float)
+    x = gaussian_filter1d(np.repeat(bits, 16), 4).astype(np.complex64) * 0.2
+    return torch.as_tensor(x, device=device)
+
+
+def test_resumable_on_card_kill_and_resume(cuda_device, tmp_path):
+    """2^20 samples: the field stays on the card between segments, a run
+    killed after its 2nd save resumes to the bits of the whole run, and the
+    kicks and products go through the kernels."""
+    from opticomlib_tpu_torch import runtime
+    from opticomlib_tpu_torch.ops import ssfm
+    from opticomlib_tpu_torch.runtime.checkpoint import \
+        PropagationCheckpointer
+    n = 2**20
+    A = _launch_field(n, 0, cuda_device)
+    w = 2 * np.pi * np.fft.fftfreq(n) * 160e9
+    kw = dict(alpha=0.2, beta_2=-20, gamma=1.3, phi_max=0.02)
+    whole = runtime.ssfm_propagate_resumable(
+        A, w, 8.0, str(tmp_path / "whole"), 2.0, **kw)
+    assert whole.device == A.device and whole.dtype == torch.complex64
+    assert kernels.LAUNCHES["nl_halfstep"] > 0
+    assert kernels.LAUNCHES["cmul"] == 2 * kernels.LAUNCHES["nl_halfstep"]
+    orig, calls = PropagationCheckpointer.save, {"n": 0}
+
+    def dying(self, *a, **k):
+        out = orig(self, *a, **k)
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("boom")
+        return out
+
+    PropagationCheckpointer.save = dying
+    try:
+        with pytest.raises(RuntimeError, match="boom"):
+            runtime.ssfm_propagate_resumable(
+                A, w, 8.0, str(tmp_path / "crash"), 2.0, **kw)
+    finally:
+        PropagationCheckpointer.save = orig
+    resumed = runtime.ssfm_propagate_resumable(
+        A, w, 8.0, str(tmp_path / "crash"), 2.0, **kw)
+    assert torch.equal(resumed, whole)
+    # fixed steps: the segments take the straight run's steps
+    fixed = dict(alpha=0.2, beta_2=-20, gamma=1.3, h=0.5)
+    straight, _ = ssfm.ssfm_propagate(A, w, 8.0, **fixed)
+    seg = runtime.ssfm_propagate_resumable(
+        A, w, 8.0, str(tmp_path / "fixed"), 2.0, **fixed)
+    torch.testing.assert_close(seg, straight, atol=1e-5, rtol=0)
+    # host data with no device named goes to the card
+    gv.default()
+    out = runtime.ssfm_propagate_resumable(
+        A.cpu().numpy(), w, 8.0, str(tmp_path / "host"), 2.0, **fixed)
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out, seg, atol=1e-6, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """World size 1 over NCCL: one rank, file rendezvous, a (1, 1) mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from opticomlib_tpu_torch.parallel import (initialize_multihost,
+                                               make_link_mesh)
+    gv.default()  # no device named: the card, hence NCCL
+    rendezvous = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    assert initialize_multihost(f"file://{rendezvous}", 1, 0,
+                                timeout_s=120) == 1
+    assert dist.get_backend() == "nccl"
+    assert initialize_multihost() == 1          # idempotent
+    yield make_link_mesh(1, 1)
+    dist.destroy_process_group()
+
+
+_FIBER20 = dict(length=20.0, alpha=0.2, beta_2=-20.0, gamma=1.3)
+
+
+@pytest.mark.parametrize("name,kw,tol_peak", [
+    ("pencil_adaptive", dict(h=None, phi_max=0.05), 5e-4),
+    ("pencil_fixed", dict(h=0.5), 5e-4),
+    ("overlap_fixed", dict(h=0.5, method="overlap"), 5e-3),
+    ("overlap_adaptive", dict(h=None, phi_max=0.05, method="overlap"), 5e-3),
+    ("auto", dict(h=0.5, method="auto"), 5e-4),
+    ("o4_fixed", dict(h=2.0, scheme="o4"), 5e-4),
+    ("o4_auto", dict(h=None, scheme="o4", tol=1e-5), 5e-4),
+    ("local_error", dict(h=None, scheme="local_error", tol=1e-5), 5e-4),
+])
+def test_sharded_world_size_1_nccl(cuda_device, nccl_mesh, name, kw,
+                                   tol_peak):
+    """ssfm_sharded on one rank over NCCL at 2^20 samples against the
+    unsharded call: the tolerances of tests/test_parallel.py, equal step
+    counts on the pencil path, every kick and product through the
+    kernels."""
+    from opticomlib_tpu_torch.ops import ssfm
+    from opticomlib_tpu_torch.parallel import ssfm_sharded
+    from opticomlib_tpu_torch.parallel.fiber import ShardedField
+    n, fs = 2**20, 160e9
+    A = _launch_field(n, 3, cuda_device) * 1.5
+    w = 2 * np.pi * np.fft.fftfreq(n) * fs
+    out = ssfm_sharded(A, nccl_mesh, fs=fs, **_FIBER20, **kw)
+    assert isinstance(out, ShardedField) and out.local.device == A.device
+    assert kernels.LAUNCHES["nl_halfstep"] > 0
+    assert kernels.LAUNCHES["cmul"] > 0
+    plain = {k: v for k, v in kw.items() if k not in ("method", "scheme")}
+    scheme = kw.get("scheme", "reference")
+    if scheme == "reference":
+        ref, steps = ssfm.ssfm_propagate(A, w, **_FIBER20, **plain)
+    elif scheme == "o4" and kw["h"] is not None:
+        ref, steps = ssfm.ssfm_scan_o4(A, w, **_FIBER20, **plain)
+    else:
+        plain.pop("h")
+        fn = ssfm.ssfm_o4_auto if scheme == "o4" else ssfm.ssfm_local_error
+        ref, steps = fn(A, w, **_FIBER20, **plain)
+    err = float((out.local - ref).abs().max() / ref.abs().max())
+    assert err <= tol_peak, err
+    if kw.get("method") != "overlap":
+        assert out.n_steps == steps
+    host = np.asarray(out)                      # the gather
+    assert np.array_equal(host, out.local.cpu().numpy())
+    # the block is its own allocation (the overlap path cuts it out of a
+    # padded buffer): 16-byte aligned for cmul's vector path
+    assert out.local.data_ptr() % 16 == 0
+    assert out.local.untyped_storage().nbytes() == 8 * n
+
+
+def test_mesh_of_cards_refuses_cpu_tensor(cuda_device, nccl_mesh):
+    """A tensor is never moved between the host and the card behind the
+    caller: a CPU tensor handed to a mesh of cards raises, host data is
+    placed on the rank's card."""
+    from opticomlib_tpu_torch.parallel import shard_waveform, ssfm_sharded
+    A = _launch_field(2**12, 5, cuda_device)
+    with pytest.raises(ValueError, match=r"initialize_multihost\(device="):
+        shard_waveform(A.cpu(), nccl_mesh)
+    with pytest.raises(ValueError, match=r"initialize_multihost\(device="):
+        ssfm_sharded(A.cpu(), nccl_mesh, fs=160e9, length=1.0, beta_2=-20.0,
+                     h=0.5)
+    placed = shard_waveform(A.cpu().numpy(), nccl_mesh)
+    assert placed.local.device == A.device
+    assert torch.equal(placed.local, A)
+
+
+def test_fiber_mesh_on_card(cuda_device, nccl_mesh):
+    """FIBER(mesh=) with no device named: sharded payload on the card into
+    the next stage; return_steps rejected."""
+    from opticomlib_tpu_torch.parallel.fiber import ShardedField
+    from opticomlib_tpu_torch.signals import OpticalSignal
+    gv.default()
+    gv(sps=16, R=10e9, N=2**16)
+    x = OpticalSignal(_launch_field(2**20, 7, cuda_device))
+    kw = dict(length=10, alpha=0.2, beta_2=-20.0, gamma=1.3, phi_max=0.05)
+    single = devices.FIBER(x, **kw)
+    o1 = devices.FIBER(x, mesh=nccl_mesh, **kw)
+    assert isinstance(o1.signal, ShardedField) and o1.device.type == "cuda"
+    assert o1.n_steps == single.n_steps
+    a, b = o1.to_numpy(), single.to_numpy()
+    assert np.max(np.abs(a - b)) <= 5e-4 * np.max(np.abs(b))
+    o2 = devices.FIBER(o1, mesh=nccl_mesh, **kw)
+    assert isinstance(o2.signal, ShardedField)
+    with pytest.raises(ValueError):
+        devices.FIBER(x, mesh=nccl_mesh, return_steps=True, **kw)
+    gv.default()
+
+
+def test_profiling_trace_on_card(cuda_device, tmp_path):
+    """The Chrome trace of a block holds the named region and the kernels'
+    names; DeviceTimer agrees with CUDA events."""
+    import glob
+    import json
+
+    from opticomlib_tpu_torch.ops import ssfm
+    from opticomlib_tpu_torch.utils import profiling
+    n = 2**20
+    A = _launch_field(n, 1, cuda_device)
+    w = 2 * np.pi * np.fft.fftfreq(n) * 160e9
+    kw = dict(alpha=0.2, beta_2=-20, gamma=1.3, h=0.5)
+    ssfm.ssfm_propagate(A, w, 4.0, **kw)
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("ssfm"):
+            ssfm.ssfm_propagate(A, w, 4.0, **kw)
+    (path,) = glob.glob(str(tmp_path / "trace_*.json"))
+    with open(path) as f:
+        names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+    assert "ssfm" in names
+    assert any("_nl_halfstep_kernel" in nm for nm in names)
+    assert any("cmul" in nm for nm in names)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profiling.DeviceTimer(cuda_device) as t:
+        start.record()
+        out, _ = ssfm.ssfm_propagate(A, w, 40.0, **kw)
+        end.record()
+        t.sync(out)
+    ev_ms = start.elapsed_time(end)
+    assert abs(t.elapsed * 1e3 - ev_ms) <= 0.05 * ev_ms + 0.2
+    stats = profiling.profiled("80 steps", lambda: ssfm.ssfm_propagate(
+        A, w, 40.0, **kw), out=lambda line: None)
+    assert stats["n_ops"] > 0 and 0 < stats["busy_s"] <= stats["wall_s"]
+    assert any("_nl_halfstep_kernel" in nm for nm in stats["by_name"])

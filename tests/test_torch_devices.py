@@ -231,8 +231,10 @@ def test_fiber_dbp_roundtrip():
 def test_fiber_not_ported_options():
     _gv(sps=16, R=1e9, N=16)
     op = TD.LASER(P0=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TD.FIBER(op, length=1, mesh=object())
+    # mesh= is ported (tests/test_torch_parallel.py): what it cannot do is
+    # return_steps, as in the JAX device
+    with pytest.raises(ValueError, match="mesh= does not support"):
+        TD.FIBER(op, length=1, mesh=object(), return_steps=True)
     with pytest.raises(NotImplementedError, match="return_steps"):
         TD.FIBER(op, length=1, return_steps=True)
     with pytest.warns(RuntimeWarning, match="progress"):

@@ -85,7 +85,7 @@ def test_eye_equals_dsp_eye_and_post_hoc_metrology():
     bits = prbs(9, length=NBITS)[0]
     e = tprog.eye(bits=bits, seed=2, nslots=512)
     d = tprog.dsp(bits=bits, seed=2, nslots=512, sps_resamp=None)
-    m = teye.eye_metrics(tprog.run(bits=bits, seed=2).v, sps=SPS, nslots=512)
+    m = teye.eye_metrics(tprog.run(bits=bits, seed=2).v.signal, sps=SPS, nslots=512)
     for k in SCALARS:
         assert getattr(e, k) == getattr(d.eye, k) == m[k].item(), k
 

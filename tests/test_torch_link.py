@@ -94,8 +94,8 @@ def test_noiseless_chain_matches_jax(noiseless):
     v_j, slots_j = jprog.jitted(jnp.asarray(bits.astype(np.float32)),
                                 jnp.uint32(SEED))[:2]
     res = tprog.run(bits=bits, seed=SEED)
-    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
-    assert rel_l2(res.slots.numpy(), slots_j) <= 1e-4
+    assert rel_l2(res.v.to_numpy(), v_j) <= 1e-4
+    assert rel_l2(res.slots.to_numpy(), slots_j) <= 1e-4
     assert len(res.n_steps) == 1 and res.n_steps[0] > 0
 
 
@@ -105,7 +105,7 @@ def test_noisy_chain_matches_jax_on_jax_draws(noisy):
     v_j = jprog.jitted(jnp.asarray(bits.astype(np.float32)),
                        jnp.uint32(SEED))[0]
     res = tprog.run(bits=bits, noise=draws)
-    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
+    assert rel_l2(res.v.to_numpy(), v_j) <= 1e-4
 
 
 def test_noisy_dsp_matches_jax_on_jax_draws(noisy):
@@ -164,9 +164,9 @@ def test_build_time_validation_matches_jax(kw, stages, match):
 
 def test_seeded_noise_is_reproducible():
     _, tprog, bits = _build("entry", noisy=True)
-    v1 = tprog.run(bits=bits, seed=5).v
-    v2 = tprog.run(bits=bits, seed=5).v
-    v3 = tprog.run(bits=bits, seed=6).v
+    v1 = tprog.run(bits=bits, seed=5).v.signal
+    v2 = tprog.run(bits=bits, seed=5).v.signal
+    v3 = tprog.run(bits=bits, seed=6).v.signal
     assert torch.equal(v1, v2) and not torch.equal(v1, v3)
 
 
@@ -206,5 +206,5 @@ def test_transmitter_options_match_jax(tx):
     v_j, slots_j = progs[0].jitted(jnp.asarray(bits.astype(np.float32)),
                                    jnp.uint32(0))[:2]
     res = progs[1].run(bits=bits)
-    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
-    assert rel_l2(res.slots.numpy(), slots_j) <= 1e-4
+    assert rel_l2(res.v.to_numpy(), v_j) <= 1e-4
+    assert rel_l2(res.slots.to_numpy(), slots_j) <= 1e-4

@@ -86,7 +86,7 @@ def test_config4_waveform_matches_jax(config4):
         v_j = np.asarray(jp.jitted(jnp.asarray(BITS.astype(np.float32)),
                                    jnp.uint32(SEED))[0])
         v_t = tp.run(bits=BITS, noise=jax_draws(SEED, tp.n, jp.spec)
-                     ).v.numpy()
+                     ).v.to_numpy()
         if not adc:
             assert rel_l2(v_t, v_j) <= 1e-4
             continue
@@ -137,7 +137,7 @@ def test_laser_noise_matches_jax_on_jax_draws(laser):
     f_j = np.asarray(out[2]) + 1j * np.asarray(out[3])
     res = tprog.run(bits=BITS, noise=jax_draws(SEED, tprog.n, jprog.spec))
     assert rel_l2(res.field.numpy(), f_j) <= 1e-5
-    assert rel_l2(res.v.numpy(), np.asarray(out[0])) <= 1e-5
+    assert rel_l2(res.v.to_numpy(), np.asarray(out[0])) <= 1e-5
     assert res.rin_ok and float(out[-1]) == 1.0
 
 
@@ -168,7 +168,7 @@ def test_rin_clamp_sets_the_flag_and_warns():
     with pytest.warns(RuntimeWarning, match="RIN"):
         res = prog.run(bits=BITS, noise={"rin": rin})
     assert not res.rin_ok
-    assert np.isfinite(res.v.numpy()).all()
+    assert np.isfinite(res.v.to_numpy()).all()
     assert prog.run(bits=BITS, noise={"rin": np.zeros(n, np.float32)}).rin_ok
 
 
@@ -198,4 +198,4 @@ def test_mixed_stage_constants_carried_across():
     v_j = jprog.jitted(jnp.asarray(BITS.astype(np.float32)),
                        jnp.uint32(SEED))[0]
     res = tprog.run(bits=BITS, noise=jax_draws(SEED, tprog.n, jprog.spec))
-    assert rel_l2(res.v.numpy(), v_j) <= 1e-4
+    assert rel_l2(res.v.to_numpy(), v_j) <= 1e-4

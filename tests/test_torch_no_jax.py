@@ -22,7 +22,15 @@ _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
             "opticomlib_tpu_torch.utils.theory", "opticomlib_tpu_torch.rng",
             "opticomlib_tpu_torch.signals", "opticomlib_tpu_torch.devices",
             "opticomlib_tpu_torch.ook", "opticomlib_tpu_torch.models.ook",
-            "opticomlib_tpu_torch.ppm", "opticomlib_tpu_torch.models.ppm")
+            "opticomlib_tpu_torch.ppm", "opticomlib_tpu_torch.models.ppm",
+            "opticomlib_tpu_torch.runtime",
+            "opticomlib_tpu_torch.runtime.checkpoint",
+            "opticomlib_tpu_torch.utils.profiling",
+            "opticomlib_tpu_torch.parallel",
+            "opticomlib_tpu_torch.parallel.multihost",
+            "opticomlib_tpu_torch.parallel.halo",
+            "opticomlib_tpu_torch.parallel.dfft",
+            "opticomlib_tpu_torch.parallel.fiber")
 
 
 def test_port_imports_no_jax():

@@ -323,7 +323,7 @@ def test_dsp_ppm_reproducible_and_keyed_by_seed():
 def test_dsp_ppm_default_bits_are_the_prbs():
     jprog, tprog = _progs()
     dj, dt = jprog.dsp_ppm(M, seed=0), tprog.dsp_ppm(M, seed=0)
-    np.testing.assert_array_equal(dt.tx, dj.tx.data)
+    np.testing.assert_array_equal(dt.tx.data, dj.tx.data)
     assert dt.n_errors == dj.n_errors == 0
 
 

@@ -43,7 +43,7 @@ def _port(stages=lambda m: (), seed=0, noise=None, **kw):
                             TParams.create(sps=SPS, R=R, _warn=False),
                             device="cpu", return_field=True)
     res = prog.run(bits=BITS, seed=seed, noise=noise)
-    return res.field.numpy(), res.v.numpy(), res.n_steps
+    return res.field.numpy(), res.v.to_numpy(), res.n_steps
 
 
 def _jax(stages=lambda m: (), seed=0, **kw):

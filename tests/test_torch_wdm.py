@@ -126,8 +126,8 @@ def test_channel_waveforms_are_the_per_channel_runs():
     assert wins.shape == (NCH, NBITS * SPS) and slots.shape == (NCH, NBITS)
     for c in range(NCH):
         run = tprog.run(bits=bits[c], seed=11 + c)
-        assert torch.equal(wins[c], run.v)
-        assert torch.equal(slots[c], run.slots)
+        assert torch.equal(wins[c], run.v.signal)
+        assert torch.equal(slots[c], run.slots.signal)
         assert steps[c] == run.n_steps
 
 
