@@ -111,7 +111,19 @@ It checks them in phases, one line each; any failure exits non-zero:
 17. profiling: one config-2 ``dsp`` under ``trace`` with ``annotate("ssfm")``
     around the fiber: the Chrome trace holds the region and the
     ``nl_halfstep`` kernel; ``DeviceTimer`` agrees with CUDA events on that
-    call within 5 %.
+    call within 5 %;
+18. the sharded fused link at world size 1 over NCCL, on phase 16's mesh:
+    ``build_link(mesh=).jitted`` against ``LinkProgram`` at 2^20 samples
+    (config 2 and 4 noiseless, and on the same injected draws; steps equal,
+    v within 2e-5 of the peak, 5e-5 for config 4's 40 spans); config 2 and
+    config 4 ``ShardedLinkProgram.dsp`` at 2^24 held to the JAX pins (config
+    4 through the sharded ADC range and the ``adc_quantize`` kernel); config
+    5 ``dsp_wdm(16)`` of the sharded program at 16 x 2^24 (per-channel steps
+    equal to phase 13's sweep, every channel to the JAX pins, peak memory);
+    ``LinkProgram.dsp_wdm(16, mesh=)`` over a 1-D 'wdm' mesh equal to phase
+    13's sweep; ``PD(FIBER(x, mesh=))`` at 2^24 against ``PD(FIBER(x))``;
+    each with its first and steady wall time beside the unsharded call's,
+    and its launches.
 
 The line before the last is a JSON object with, for each kernel, its
 launches (summed over the counted runs of the paths; per path under
@@ -836,6 +848,7 @@ def main() -> None:
     bits = prbs(15, length=N_BITS)[0]
     d, launches2, t_first, walls, peak = timed_dsp(torch, kernels, prog,
                                                    bits)
+    unsharded_walls = {"config2": (t_first, walls)}  # beside phase 18's
     e = d.eye
     check(d.n_steps == (PINNED["n_steps"],), 4,
           f"n_steps {d.n_steps} != ({PINNED['n_steps']},)")
@@ -912,6 +925,7 @@ def main() -> None:
     bits = prbs(15, length=N_BITS4)[0]
     d, launches4, t_first, walls, peak = timed_dsp(torch, kernels, prog,
                                                    bits)
+    unsharded_walls["config4"] = (t_first, walls)
     e = d.eye
     check(d.n_steps == (4,) * 40, 6, f"n_steps {d.n_steps}")
     check(launches4["nl_halfstep"] >= 960 and launches4["cmul"] >= 480
@@ -1206,6 +1220,7 @@ def main() -> None:
         return out
 
     sw, launches5, t_first, walls, peak = sweep5(N_BITS5, steady=1)
+    sw5, unsharded_walls["config5"] = sw, (t_first, walls)  # for phase 18
     print(f"phase 13 config 5 (16 x 2^24 samples): ok steps "
           f"{[st[0] for st in sw.n_steps]}, max BER {float(sw.ber.max())}, "
           f"thresholds {float(sw.threshold.min()):.5f}-"
@@ -1610,9 +1625,7 @@ def main() -> None:
           f"{o1.n_steps} steps, err/peak {e16:.2g}, {t_mesh:.3f} s vs FIBER "
           f"{t_plain:.3f} s; launches {launches_sharded['fiber_mesh']}",
           flush=True)
-    dist.destroy_process_group()
-    rendezvous.cleanup()
-    del o1, o2, o_plain, x, A0, straight, whole, phi_dev
+    del o1, o2, o_plain, x, straight, whole, phi_dev
 
     # ---- phase 17: profiling ----
     import glob
@@ -1661,6 +1674,158 @@ def main() -> None:
           f"{timer.elapsed * 1e3:.3f} ms vs CUDA events {ev_ms:.3f} ms",
           flush=True)
     del prog, d
+
+    # ---- phase 18: the sharded fused link at world size 1 over NCCL ----
+    from opticomlib_tpu_torch.parallel.fiber import make_mesh
+
+    def held(a, b, tol, what):
+        """``a`` (this rank's block of a sharded output, or a tensor) within
+        ``tol`` of the peak of ``b``; returns the error."""
+        a = a.local if isinstance(a, ShardedField) else a
+        err = float((a.reshape(b.shape) - b).abs().max() / b.abs().max())
+        check(err <= tol, 18, f"{what}: max abs err / peak {err:.3g} > {tol}")
+        return err
+
+    # 1. card against card, 2^20 samples: noiseless, then on the same draws
+    rng = np.random.default_rng(18)
+    quiet2 = dataclasses.replace(spec, include_thermal=False,
+                                 include_shot=False, stages=(
+                                     spec.stages[0], link.EDFASpec(G=10)))
+    quiet4 = dataclasses.replace(config4_spec(link, noisy=False),
+                                 include_thermal=False, include_shot=False)
+    n = SMALL_BITS * SPS                      # = SMALL_BITS4 * SPS4
+    draws = {"ase": [rng.standard_normal((4, n), dtype=np.float32)
+                     for _ in range(20)]}
+    for k in ("phase", "rin", "thermal", "shot"):
+        draws[k] = rng.standard_normal(n, dtype=np.float32)
+    # tolerance / peak: config 2 the JAX tests' 2e-5; config 4's 40
+    # nonlinear spans grow the round-off between the two programs' orders
+    # of the same chain (the float32 strided dispersion phase, the DAC's
+    # complex-input transform) to 2.3e-5-2.8e-5 of the peak at 2^20 samples
+    # (scripts/compare_sharded_link.py on the CPU), so 5e-5
+    lines18 = []
+    for name, sp, pr_, nb, noise, tol in (
+            ("config 2 noiseless", quiet2, params, SMALL_BITS, None, 2e-5),
+            ("config 4 noiseless", quiet4, params4, SMALL_BITS4, None, 5e-5),
+            ("config 2 on the same draws", spec, params, SMALL_BITS,
+             dict(draws, ase=draws["ase"][:1]), 2e-5),
+            ("config 4 before its ADC on the same draws",
+             dataclasses.replace(spec4, adc_bits=None), params4, SMALL_BITS4,
+             draws, 5e-5)):
+        b = prbs(15, length=nb)[0].astype(np.float32)
+        o1 = link.build_link(sp, nb, pr_, mesh=mesh).jitted(
+            b, [3], noise=None if noise is None else [noise])
+        o0 = link.build_link(sp, nb, pr_, device=dev).jitted(
+            torch.as_tensor(b, device=dev), 3, noise=noise)
+        check([int(st[0]) for st in o1[2]] == list(o0[2]), 18,
+              f"{name}: steps {[st.tolist() for st in o1[2]]} vs {o0[2]}")
+        e18 = held(o1[0], o0[0], tol, name)
+        lines18.append(f"{name} {e18:.2g} ({sum(o0[2])} steps)")
+    print("phase 18 sharded link vs LinkProgram on the card (2^20 samples): "
+          "ok v err/peak " + "; ".join(lines18), flush=True)
+    del o0, o1, draws
+
+    def sharded_call(tag, fn, steady=1):
+        out = timed_call(torch, kernels, fn, steady=steady)
+        launches_sharded[tag] = out[1]
+        return out
+
+    def walls_line(out, unsharded):
+        steady = ", ".join(f"{w:.3f}" for w in unsharded[1])
+        return (f"wall first {out[2]:.3f} s, then "
+                f"{', '.join(f'{w:.3f}' for w in out[3])} s (unsharded "
+                f"{unsharded[0]:.3f}" + (f", then {steady}" if steady else "")
+                + f" s); peak memory {out[4] / 2**30:.2f} GiB; launches "
+                f"{out[1]}")
+
+    # 2. config 2 at 2^24 samples, ShardedLinkProgram.dsp
+    prog = link.build_link(spec, N_BITS, params, mesh=mesh)
+    bits = prbs(15, length=N_BITS)[0]
+    out = sharded_call("link_config2", lambda: prog.dsp(bits=bits, seed=3))
+    d = out[0]
+    check(d.n_steps == (PINNED["n_steps"],) and out[1]["nl_halfstep"] >= 58
+          and out[1]["cmul"] >= 116 and out[1]["histogram2d"] >= 1, 18,
+          f"config 2: steps {d.n_steps}, launches {out[1]}")
+    hold_to_pin(d, PINNED, 18)
+    print(f"phase 18 config 2 sharded dsp (2^24 samples): ok {d.n_steps[0]} "
+          f"steps, BER {d.ber}, threshold {d.threshold:.5f} (JAX "
+          f"{PINNED['threshold']}); "
+          + walls_line(out, unsharded_walls["config2"]), flush=True)
+    del prog, d, out
+
+    # 3. config 4 at 2^24 samples: o4, DBP, the ADC through the sharded range
+    prog = link.build_link(spec4, N_BITS4, params4, mesh=mesh)
+    bits = prbs(15, length=N_BITS4)[0]
+    out = sharded_call("link_config4", lambda: prog.dsp(bits=bits, seed=3))
+    d = out[0]
+    check(d.n_steps == (4,) * 40 and d.rin_ok
+          and out[1]["adc_quantize"] >= 1 and out[1]["histogram2d"] >= 2, 18,
+          f"config 4: steps {d.n_steps}, rin_ok {d.rin_ok}, launches "
+          f"{out[1]}")
+    hold_to_pin(d, PINNED4, 18)
+    print(f"phase 18 config 4 sharded dsp (2^24 samples): ok "
+          f"{sum(d.n_steps)} o4 steps, BER {d.ber}, threshold "
+          f"{d.threshold:.6f} (JAX {PINNED4['threshold']}); "
+          + walls_line(out, unsharded_walls["config4"]), flush=True)
+    del prog, d, out
+
+    # 4. config 5: dsp_wdm(16) of the sharded program, 16 x 2^24 on the card
+    prog = link.build_link(spec, N_BITS5, params5, mesh=mesh)
+    bits = bits5(N_BITS5)
+    out = sharded_call("link_config5", lambda: prog.dsp_wdm(
+        N_CH5, bits=bits, seed=5))
+    sw = out[0]
+    check(sw.n_steps == sw5.n_steps, 18,
+          f"config 5 steps {sw.n_steps} vs the unsharded sweep's "
+          f"{sw5.n_steps}")
+    check(float(sw.ber.max()) <= 1e-4 and sw.rin_ok.all(), 18,
+          f"config 5 BER {sw.ber}")
+    for k, spread in PINNED5_STD.items():
+        off = np.abs(getattr(sw, k) - PINNED5[k]) / spread
+        check(off.max() <= 5, 18, f"config 5 channel {int(off.argmax())}: "
+              f"{k} is {off.max():.1f} deviations from the JAX mean")
+    print(f"phase 18 config 5 sharded dsp_wdm(16) (16 x 2^24 samples): ok "
+          f"steps {[st[0] for st in sw.n_steps]} (the unsharded sweep's), "
+          f"max BER {float(sw.ber.max())}, thresholds "
+          f"{float(sw.threshold.min()):.5f}-{float(sw.threshold.max()):.5f}; "
+          + walls_line(out, unsharded_walls["config5"]), flush=True)
+    del prog, sw, out
+
+    # 5. LinkProgram.dsp_wdm over a 1-D 'wdm' mesh equals the plain sweep,
+    # which runs again first for its wall time in the same state
+    prog = link.build_link(spec, N_BITS5, params5, device=dev)
+    plain = timed_call(torch, kernels, lambda: prog.dsp_wdm(
+        N_CH5, bits=bits, seed=5), steady=1)
+    out = sharded_call("mesh_sweep_config5", lambda: prog.dsp_wdm(
+        N_CH5, bits=bits, seed=5, mesh=make_mesh([0], ("wdm",))))
+    sw = out[0]
+    check(np.array_equal(sw.n_errors, sw5.n_errors)
+          and sw.n_steps == sw5.n_steps
+          and np.array_equal(sw.threshold, sw5.threshold), 18,
+          f"dsp_wdm(mesh=): errors {sw.n_errors}, thresholds "
+          f"{sw.threshold} vs {sw5.n_errors}, {sw5.threshold}")
+    print(f"phase 18 LinkProgram.dsp_wdm(16, mesh='wdm' of one card): ok "
+          f"errors, steps and thresholds equal to the plain sweep's; "
+          + walls_line(out, plain[2:4]), flush=True)
+    del prog, sw, out, bits, sw5, plain
+
+    # 6. a staged device after FIBER(mesh=): PD on the whole field
+    gv(sps=SPS, R=R, N=N_BITS)
+    x = OpticalSignal(A0)
+    kw = dict(length=50, phi_max=0.01, **base)
+    pd_kw = dict(BW=0.75 * R, include_noise="none")
+    out = sharded_call("staged_pd_after_fiber_mesh", lambda: D.PD(
+        D.FIBER(x, mesh=mesh, **kw), **pd_kw))
+    (ref, t_ref) = wall(lambda: D.PD(D.FIBER(x, **kw), **pd_kw))
+    check(out[0].device.type == "cuda", 18, "PD(FIBER(mesh=)) left the card")
+    e18 = held(out[0].signal, ref.signal, 5e-4, "PD(FIBER(mesh=))")
+    gv.default()
+    print(f"phase 18 PD(FIBER(x, mesh=mesh)) (2^24 samples): ok err/peak "
+          f"{e18:.2g}; "
+          + walls_line(out, (t_ref, [])), flush=True)
+    dist.destroy_process_group()
+    rendezvous.cleanup()
+    del x, out, ref, A0
 
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,

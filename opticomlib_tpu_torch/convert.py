@@ -9,7 +9,8 @@ real arrays (``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``,
 :class:`opticomlib_tpu_torch.link.LinkProgram`'s buffers (the two builders
 number the spectral arrays with one counter in stage order), so
 ``prog.load_consts(consts_from_jax(jax_prog.consts))`` runs the port on the
-JAX program's own constants.
+JAX program's own constants; with ``mesh=`` the same for the sharded
+programs, each rank taking its block.
 
 :func:`signal_from_jax` and :func:`gv_from_jax` carry the staged API's
 state across: a JAX ``BinarySequence`` / ``ElectricalSignal`` /
@@ -36,9 +37,15 @@ __all__ = ["consts_from_jax", "signal_from_jax", "gv_from_jax",
            "sharded_from_jax", "sharded_to_jax"]
 
 
-def consts_from_jax(consts: dict) -> dict:
+def consts_from_jax(consts: dict, mesh=None, time_axis: str = "time") -> dict:
     """``{name: array}`` of the JAX program -> ``{name: CPU tensor}`` of
-    the port (complex64 for recombined pairs, float32 otherwise)."""
+    the port (complex64 for recombined pairs, float32 otherwise).
+
+    With ``mesh`` (a mesh of ranks with ``time_axis``), ``consts`` are those
+    of the JAX ``ShardedLinkProgram`` (global arrays, the spectral ones in
+    the pencil strided layout) and each array becomes this rank's block
+    along the time axis, what the port's ``ShardedLinkProgram`` holds:
+    ``prog.load_consts(consts_from_jax(jax_prog.consts, mesh))``."""
     out = {}
     for name, arr in consts.items():
         if name.endswith("_im"):
@@ -54,6 +61,11 @@ def consts_from_jax(consts: dict) -> dict:
             out[base] = torch.from_numpy(z.astype(np.complex64))
         else:
             out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if mesh is not None:
+        axis = mesh.axis(time_axis)
+        for name, t in out.items():
+            B = t.shape[-1] // axis.size
+            out[name] = t[..., axis.index * B:(axis.index + 1) * B].clone()
     return out
 
 
@@ -143,14 +155,14 @@ def sharded_to_jax(field):
     rows_whole = len(shape) == 2 and not field.wdm_axis
     # rows held whole are the same block on every 'wdm' row: one is enough
     blocks = {}
-    for i in range(1 if rows_whole else mesh.shape["wdm"]):
-        for j in range(mesh.shape["time"]):
-            idx = ShardedField.block_indices(
-                mesh, shape, field.wdm_axis, {"wdm": i, "time": j})
-            block = whole[tuple(slice(a, b) for a, b in idx)]
-            if rows_whole:
-                idx[0] = [0, -1]
-            blocks[tuple(map(tuple, idx))] = block
+    for idx in np.ndindex(*mesh.ranks.shape):
+        bounds = ShardedField.block_indices(
+            mesh, shape, field.wdm_axis, dict(zip(mesh.axis_names, idx)),
+            field.time_axis)
+        block = whole[tuple(slice(a, b) for a, b in bounds)]
+        if rows_whole:
+            bounds[0] = [0, -1]
+        blocks[tuple(map(tuple, bounds))] = block
     keys = sorted(blocks)
     stacked = np.stack([blocks[k] for k in keys])
     return (np.ascontiguousarray(stacked.real),

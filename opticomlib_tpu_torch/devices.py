@@ -451,7 +451,9 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     input.  ``shard_method``: ``'pencil'`` (exact distributed FFT),
     ``'overlap'`` (halo exchange, approximate) or ``'auto'``.  The output's
     payload stays on its ranks (a ``ShardedField``): the next
-    ``FIBER(mesh=...)`` takes it as it is, ``to_numpy()`` gathers it.
+    ``FIBER(mesh=...)`` takes it as it is; any other device, signal
+    operation or ``to_numpy()`` sees the whole field, gathered onto each
+    rank's device (a collective every rank makes, as it makes this call).
 
     Returns a complex64 :class:`OpticalSignal` whose ``n_steps`` attribute
     is the number of steps taken (attempted, for the step-doubling
@@ -472,16 +474,13 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
 
         # a ShardedField payload (the previous FIBER(mesh=) output) goes
         # straight back to the sharded solver, each block where it lies
-        if isinstance(input.signal, ShardedField):
-            if _has_noise(input.noise):
-                toc()
-                raise ValueError("a sharded signal with a noise track: "
-                                 "gather it (to_numpy) first")
+        if (isinstance(input.signal, ShardedField)
+                and not _has_noise(input.noise)):
             A = input.signal
         else:
             A = input._total()
-        wdm_axis = ("wdm" if A.ndim == 2
-                    and A.shape[0] % mesh.shape["wdm"] == 0 else None)
+        wdm_axis = ("wdm" if "wdm" in mesh.axis_names and A.ndim == 2
+                    and A.shape[0] % mesh.size("wdm") == 0 else None)
         out = ssfm_sharded(
             A, mesh, fs=gv.fs, length=float(length), alpha=float(alpha),
             beta_2=float(beta_2), beta_3=float(beta_3), gamma=float(gamma),

@@ -28,8 +28,11 @@ operations are the JAX program's; what differs:
 * A WDM sweep runs the chain one channel at a time (channel ``c`` is the
   chain of ``seed + c``, with its own step count), keeps each channel's
   receiver window, and runs the receivers on the stacked windows: the KDE
-  histograms of all channels are one kernel launch.  ``mesh=`` (channels
-  over several cards) is not ported yet.
+  histograms of all channels are one kernel launch.  With ``mesh=`` each
+  rank of the mesh runs its block of the channels and the per-channel
+  results are gathered (``torch.distributed``).
+* ``build_link(mesh=...)`` returns the sharded program of
+  :mod:`opticomlib_tpu_torch.link_sharded`.
 
 Typical use::
 
@@ -302,12 +305,17 @@ def _circular_zero_phase_spectrum(h: np.ndarray, n: int) -> np.ndarray:
     return np.fft.fft(buf).astype(np.complex64)
 
 
-def _stage_plan(stages, f0: float, fs: float, *, phi_w_name, phi_dm_name,
+def _stage_plan(stages, f0: float, fs: float, *, fiber_extra, dm_const,
                 bpf_name):
-    """Per-stage constants from the specs (the JAX builder's
-    ``_stage_plan``).  The callbacks register a spectral array and return
-    its buffer name: ``phi_w_name(fiber)``, ``phi_dm_name(dm)`` and
-    ``bpf_name(order, BW)``, called in stage order."""
+    """Per-stage constants from the specs, shared by both link programs
+    (:class:`LinkProgram` and the sharded
+    :class:`~opticomlib_tpu_torch.link_sharded.ShardedLinkProgram`; the JAX
+    package's ``_stage_plan``), so the stage semantics live in one place.
+    A program gives only its spectral arrays: ``fiber_extra(fiber)`` and
+    ``dm_const(dm)`` return extra entries of the stage's dict (a registered
+    buffer's name, or what the stage evaluates per rank), ``bpf_name(order,
+    BW)`` registers a ``|H|^2`` response and returns its name; all are
+    called in stage order."""
     def one(st):
         if isinstance(st, FiberSpec):  # incl. DBPSpec
             cc = {"kind": "fiber",
@@ -320,7 +328,7 @@ def _stage_plan(stages, f0: float, fs: float, *, phi_w_name, phi_dm_name,
                                   or (st.beta_2 == 0 and st.beta_3 == 0))}
             if isinstance(st, DBPSpec) and st.undo_gain_dB:
                 cc["pre_scale"] = float(idb(-st.undo_gain_dB) ** 0.5)
-            cc["phi_name"] = phi_w_name(st)
+            cc.update(fiber_extra(st))
             return cc
         if isinstance(st, EDFASpec):
             cc = {"kind": "edfa", "sqrtG": float(idb(st.G) ** 0.5)}
@@ -333,7 +341,7 @@ def _stage_plan(stages, f0: float, fs: float, *, phi_w_name, phi_dm_name,
                 cc["H2_name"] = bpf_name(st.filt_order, st.BW)
             return cc
         if isinstance(st, DMSpec):
-            return {"kind": "dm", "phi_name": phi_dm_name(st)}
+            return {"kind": "dm", **dm_const(st)}
         if isinstance(st, BPFSpec):
             return {"kind": "bpf", "H2_name": bpf_name(st.n, st.BW)}
         if isinstance(st, RepeatSpec):
@@ -426,6 +434,146 @@ def _eye_to_host(m: dict, dt: float) -> Eye:
     return Eye(res)
 
 
+def _pack_rows(cols: dict):
+    """Per-channel results (tensors with a leading channel axis) as one
+    ``(C, K)`` float64 tensor, so that a sweep reads them back, and a mesh
+    gathers them, in one go; returns it with the layout
+    :func:`_unpack_rows` takes."""
+    flat, layout = [], []
+    for k, v in cols.items():
+        layout.append((k, tuple(v.shape[1:]), v.dtype))
+        flat.append(v.reshape(v.shape[0], -1).to(torch.float64))
+    return torch.cat(flat, dim=1), layout
+
+
+def _unpack_rows(host: np.ndarray, layout) -> dict:
+    """The columns of :func:`_pack_rows`' rows (read back) as NumPy arrays
+    of their shapes and dtypes."""
+    out, j = {}, 0
+    for k, shape, dtype in layout:
+        w = int(np.prod(shape))
+        out[k] = host[:, j:j + w].reshape((len(host),) + shape).astype(
+            torch.empty(0, dtype=dtype).numpy().dtype)
+        j += w
+    return out
+
+
+def _steps_rows(steps, device) -> torch.Tensor:
+    """Step counts, one tuple a channel, as a ``(C, stages)`` tensor."""
+    return torch.tensor([list(s) for s in steps], dtype=torch.int64,
+                        device=device).reshape(len(steps), -1)
+
+
+def _ook_sweep_rows(wins, slots, bits_f32, sps, nslots, sps_resamp,
+                    extra: dict):
+    """The OOK receivers of ``C`` channels: eye metrology on the stacked
+    windows ``(C, W)`` (the KDE histograms of all channels are one kernel
+    launch), then per channel the threshold scan, slicer and error count on
+    its slots ``(C, n_bits)``.  Returns :func:`_pack_rows` of the eye
+    scalars, ``rth``, ``n_err`` and the ``extra`` columns."""
+    m = _eye_scalars(wins, sps, nslots, sps_resamp)
+    rth, n_err = [], []
+    for c in range(wins.shape[0]):
+        r, e = _ook_decide({k: m[k][c] for k in ("mu0", "mu1", "s0", "s1")},
+                           slots[c], bits_f32[c])
+        rth.append(r)
+        n_err.append(e)
+    cols = {k: v for k, v in m.items() if isinstance(v, torch.Tensor)}
+    cols.update(rth=torch.stack(rth), n_err=torch.stack(n_err), **extra)
+    return _pack_rows(cols)
+
+
+def _ppm_sweep_rows(wins, slots, info, M, decision, sps, nslots,
+                    sps_resamp, uniform, extra: dict):
+    """The M-PPM receivers of ``C`` channels (soft: per-symbol argmax;
+    hard: eye metrology on the stacked windows, one histogram launch, then
+    per channel :func:`_ppm_hard_decide` with ``uniform(c)`` as its HDD
+    scores).  Returns :func:`_pack_rows` of ``rth``, ``n_err`` and the
+    ``extra`` columns."""
+    if decision == "hard":
+        m = _eye_scalars(wins, sps, nslots, sps_resamp)
+    rth, n_err = [], []
+    for c in range(slots.shape[0]):
+        if decision == "soft":
+            r = torch.full((), torch.nan, device=slots.device)
+            e = _ppm_soft_errors(slots[c], info[c], M)
+        else:
+            m_c = {k: m[k][c] for k in ("mu0", "mu1", "s0", "s1",
+                                        "threshold")}
+            r, e = _ppm_hard_decide(m_c, slots[c], info[c], M, uniform(c))
+        rth.append(r)
+        n_err.append(e)
+    return _pack_rows(dict(rth=torch.stack(rth), n_err=torch.stack(n_err),
+                           **extra))
+
+
+def _hdd_uniform(seed: int, n_sym: int, M: int, noise, device):
+    """The ``(n_sym, M)`` uniform scores of the HDD symbol repair:
+    ``noise["hdd"]`` where given, else drawn from a generator keyed by the
+    link seed (its own stream, so the chain's draws do not move)."""
+    if noise is not None and "hdd" in noise:
+        u = noise["hdd"]
+        if not isinstance(u, torch.Tensor):
+            u = torch.from_numpy(np.array(u, dtype=np.float32))
+        return u.to(device=device, dtype=torch.float32).reshape(n_sym, M)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) * 2**16 + 0x504D)
+    return torch.rand((n_sym, M), generator=gen, device=device,
+                      dtype=torch.float32)
+
+
+def _ppm_shape(n_bits: int, M: int, decision: str):
+    """Validated ``(decision, bits a symbol, symbols)`` of an M-PPM
+    receiver on ``n_bits`` slots."""
+    decision = decision.lower()
+    if decision not in ("soft", "hard"):
+        raise ValueError('`decision` must be "hard" or "soft"')
+    if M & (M - 1) != 0 or M < 2:
+        raise ValueError("`M` must be a power of 2.")
+    if n_bits % M != 0:
+        raise ValueError(
+            f"link carries {n_bits} slots, not a multiple of M={M}")
+    return decision, int(math.log2(M)), n_bits // M
+
+
+def _gathered_rows(rows: torch.Tensor, layout, mesh, axis) -> dict:
+    """The packed per-channel results of every channel, read back once:
+    gathered along ``axis`` of ``mesh`` first (``mesh=None`` or
+    ``axis=None``: the rows are all of them already)."""
+    if mesh is not None:
+        rows = mesh.gather_rows(rows, axis)
+    return _unpack_rows(rows.cpu().numpy(), layout)
+
+
+def _sweep_bits(bits, n_channels: int, width: int, prbs_order: int):
+    """A sweep's bits, ``(n_channels, width)``: ``bits`` checked, or
+    consecutive PRBS segments."""
+    if n_channels < 1:
+        raise ValueError("n_channels must be >= 1")
+    if bits is None:
+        bits = prbs(prbs_order, length=n_channels * width)[0]
+        bits = bits.reshape(n_channels, width)
+    bits = np.asarray(bits)
+    if bits.shape != (n_channels, width):
+        raise ValueError(
+            f"bits must have shape {(n_channels, width)}, got {bits.shape}")
+    return bits
+
+
+def _sweep_result(host_rows: dict, n_channels: int, bits, per_channel_bits):
+    """What both sweeps return of every channel: errors, BER, the RIN flags
+    (warning on a clamped draw) and the step counts."""
+    n_err = host_rows["n_err"].astype(np.int64)
+    rin_ok = host_rows["rin_ok"] > 0
+    if not rin_ok.all():
+        _warn_rin(np.flatnonzero(~rin_ok).tolist())
+    return dict(ber=n_err / per_channel_bits, n_errors=n_err,
+                n_channels=n_channels, tx=bits.astype(np.uint8),
+                rin_ok=rin_ok,
+                n_steps=[tuple(int(x) for x in row)
+                         for row in host_rows["steps"]])
+
+
 # ---------------------------------------------------------------------------
 # the program
 # ---------------------------------------------------------------------------
@@ -488,12 +636,12 @@ class LinkProgram(torch.nn.Module):
 
         self.plan = _stage_plan(
             spec.stages, params.f0, fs,
-            phi_w_name=lambda st: register(
+            fiber_extra=lambda st: {"phi_name": register(
                 "phi_w", (st.beta_2, st.beta_3),
-                lambda: ssfm.dispersion_phase(w, st.beta_2, st.beta_3)),
-            phi_dm_name=lambda st: register(
+                lambda: ssfm.dispersion_phase(w, st.beta_2, st.beta_3))},
+            dm_const=lambda st: {"phi_name": register(
                 "phi_dm", (st.D,),
-                lambda: ((w * 1e-12) ** 2 * st.D / 2).astype(np.float32)),
+                lambda: ((w * 1e-12) ** 2 * st.D / 2).astype(np.float32))},
             bpf_name=lambda order, BW: register(
                 "H2_bpf", (order, float(BW)),
                 lambda: filters.bessel_filtfilt_response(
@@ -518,13 +666,17 @@ class LinkProgram(torch.nn.Module):
     def load_consts(self, consts: dict) -> None:
         """Replace the spectral constants with ``consts`` (name -> tensor,
         e.g. from :func:`opticomlib_tpu_torch.convert.consts_from_jax`).
-        Names, shapes and dtypes must match the buffers."""
+        Names, shapes and dtypes must match the buffers; a real response
+        goes into a complex64 buffer as it is (an exact cast)."""
         bufs = dict(self.named_buffers())
         if set(consts) != set(bufs):
             raise ValueError(f"constants {sorted(consts)} do not match the "
                              f"program's buffers {sorted(bufs)}")
         for name, val in consts.items():
             val = torch.as_tensor(val)
+            if bufs[name].dtype == torch.complex64 and val.dtype == \
+                    torch.float32:
+                val = val.to(torch.complex64)
             if val.shape != bufs[name].shape or val.dtype != bufs[name].dtype:
                 raise ValueError(
                     f"{name}: got {val.dtype}{tuple(val.shape)}, expected "
@@ -790,34 +942,6 @@ class LinkProgram(torch.nn.Module):
         return _eye_to_host(m, 1.0 / self.params.fs)
 
     # ---- M-PPM ----
-    def _ppm_shape(self, M: int, decision: str):
-        """Validated ``(decision, bits a symbol, symbols)`` of an M-PPM
-        receiver on this program's slots."""
-        decision = decision.lower()
-        if decision not in ("soft", "hard"):
-            raise ValueError('`decision` must be "hard" or "soft"')
-        if M & (M - 1) != 0 or M < 2:
-            raise ValueError("`M` must be a power of 2.")
-        if self.n_bits % M != 0:
-            raise ValueError(
-                f"link carries {self.n_bits} slots, not a multiple of M={M}")
-        return decision, int(math.log2(M)), self.n_bits // M
-
-    def _hdd_uniform(self, seed: int, n_sym: int, M: int, noise):
-        """The ``(n_sym, M)`` uniform scores of the HDD symbol repair:
-        ``noise["hdd"]`` where given, else drawn from a generator keyed by
-        the link seed (its own stream, so the chain's draws do not move)."""
-        if noise is not None and "hdd" in noise:
-            u = noise["hdd"]
-            if not isinstance(u, torch.Tensor):
-                u = torch.from_numpy(np.array(u, dtype=np.float32))
-            return u.to(device=self.device, dtype=torch.float32).reshape(
-                n_sym, M)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed) * 2**16 + 0x504D)
-        return torch.rand((n_sym, M), generator=gen, device=self.device,
-                          dtype=torch.float32)
-
     @torch.no_grad()
     def dsp_ppm(self, M: int, decision: str = "soft", bits=None,
                 seed: int = 0, prbs_order: int = 15, nslots: int = 8192,
@@ -843,7 +967,7 @@ class LinkProgram(torch.nn.Module):
 
         Only ``n_errors``, the threshold and the eye scalars are read
         back; ``tx`` is the information bits as a ``BinarySequence``."""
-        decision, k, n_sym = self._ppm_shape(M, decision)
+        decision, k, n_sym = _ppm_shape(self.n_bits, M, decision)
         if bits is None:
             bits = prbs(prbs_order, length=n_sym * k)[0]
         tx = BinarySequence(np.asarray(bits).reshape(-1))
@@ -862,7 +986,7 @@ class LinkProgram(torch.nn.Module):
         else:
             m, rth, n_err = _ppm_hard_rx_ingraph(
                 out[0], out[1], info, M, self.params.sps, nslots, sps_resamp,
-                self._hdd_uniform(seed, n_sym, M, noise))
+                _hdd_uniform(seed, n_sym, M, noise, self.device))
             eye_obj = _eye_to_host(m, 1.0 / self.params.fs)
             rth = float(rth.item())
         rin_ok = _rin_ok(out[-1])
@@ -874,24 +998,41 @@ class LinkProgram(torch.nn.Module):
             n_steps=out[2], rin_ok=rin_ok)
 
     # ---- WDM sweeps ----
-    def _sweep(self, inputs, seed: int, noise, nslots: int, mesh):
-        """Run the chain on each row of ``inputs`` (channel ``c`` with
-        ``seed + c`` and ``noise[c]``), one channel at a time so the memory
-        is one channel's, and keep what the receivers need: the eye window
-        of ``v`` and the slot samples, stacked ``(C, ...)``, the step counts
-        and the ``rin_ok`` flags ``(C,)``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the channel axis over several cards) belongs to the "
-                "parallel links, which are not ported yet; run the sweep on "
-                "one card with mesh=None")
+    def _channels(self, n_channels: int, mesh, axis) -> range:
+        """The channels this rank runs: all of them, or with a ``mesh`` its
+        contiguous block along ``axis`` (what ``NamedSharding(mesh,
+        P(axis))`` gives a device)."""
+        if mesh is None:
+            return range(n_channels)
+        if not hasattr(mesh, "axis"):
+            raise TypeError(
+                f"mesh must be a mesh of ranks (parallel.fiber.make_mesh, "
+                f"make_link_mesh), got {type(mesh).__name__}")
+        k, i = mesh.axis(axis).size, mesh.axis(axis).index
+        if mesh.device.type != self.device.type:
+            raise ValueError(
+                f"the program runs on {self.device}, the mesh on "
+                f"{mesh.device}: build the link on the mesh's device")
+        if n_channels % k:
+            raise ValueError(f"{n_channels} channels not divisible by the "
+                             f"'{axis}' mesh size {k}")
+        return range(i * n_channels // k, (i + 1) * n_channels // k)
+
+    def _sweep(self, inputs, seed: int, noise, nslots: int, mesh,
+               axis: str = "wdm"):
+        """Run the chain on each row of ``inputs`` that this rank runs
+        (:meth:`_channels`; channel ``c`` with ``seed + c`` and
+        ``noise[c]``), one channel at a time so the memory is one
+        channel's, and keep what the receivers need: the eye window of
+        ``v`` and the slot samples, stacked ``(C, ...)``, the step counts
+        (a tuple a channel) and the ``rin_ok`` flags ``(C,)``."""
         if noise is not None and len(noise) != len(inputs):
             raise ValueError(
                 f"noise must be a list of {len(inputs)} per-channel dicts")
         w = eye_window(self.n, self.params.sps, nslots)
         wins, slots, steps, flags = [], [], [], []
-        for c, row in enumerate(inputs):
-            out = self(torch.as_tensor(row, dtype=torch.float32,
+        for c in self._channels(len(inputs), mesh, axis):
+            out = self(torch.as_tensor(inputs[c], dtype=torch.float32,
                                        device=self.device), seed=seed + c,
                        noise=None if noise is None else noise[c])
             # copies: a view would keep the channel's whole waveform alive
@@ -917,43 +1058,30 @@ class LinkProgram(torch.nn.Module):
         stacked eye windows: the KDE histograms of all channels are one
         kernel launch, and the results come back as ``(n_channels,)``
         vectors in one read-back.  ``noise``: a list of per-channel draw
-        dicts.  ``mesh``/``axis`` (channels over several cards) are not
-        ported yet: a ``mesh`` raises ``NotImplementedError``."""
-        if n_channels < 1:
-            raise ValueError("n_channels must be >= 1")
-        if bits is None:
-            bits = prbs(prbs_order, length=n_channels * self.n_bits)[0]
-            bits = bits.reshape(n_channels, self.n_bits)
-        bits = np.asarray(bits)
-        if bits.shape != (n_channels, self.n_bits):
-            raise ValueError(
-                f"bits must have shape {(n_channels, self.n_bits)}, "
-                f"got {bits.shape}")
+        dicts.
+
+        ``mesh`` (a mesh of ranks with an ``axis`` dimension, e.g.
+        ``make_mesh(range(world), ("wdm",))``): every rank of the mesh
+        makes the same call and runs its contiguous block of the channels
+        (``n_channels`` divisible by the axis size), with the seeds and the
+        step counts those channels have without a mesh; the per-channel
+        results are gathered along ``axis``, so every rank returns all
+        ``n_channels``.  The channels need no traffic between the ranks
+        until that gather."""
+        bits = _sweep_bits(bits, n_channels, self.n_bits, prbs_order)
+        mine = self._channels(n_channels, mesh, axis)
         wins, slots, steps, flags = self._sweep(bits, seed, noise, nslots,
-                                                mesh)
-        m = _eye_scalars(wins, self.params.sps, nslots, sps_resamp)
-        keys = ("mu0", "mu1", "s0", "s1", "er", "eye_h")
-        rows = []
-        for c in range(n_channels):
-            m_c = {k: m[k][c] for k in ("mu0", "mu1", "s0", "s1")}
-            rth, n_err = _ook_decide(
-                m_c, slots[c], torch.as_tensor(
-                    bits[c].astype(np.float32), device=self.device))
-            rows.append(torch.stack(
-                [m[k][c].to(torch.float64) for k in keys]
-                + [rth.to(torch.float64), n_err.to(torch.float64),
-                   flags[c].to(torch.float64)]))
-        host = torch.stack(rows).cpu().numpy()  # the one read-back
-        res = dict(zip(keys, host[:, :6].T.astype(np.float32)))
-        n_err = host[:, 7].astype(np.int64)
-        rin_ok = host[:, 8] > 0
-        if not rin_ok.all():
-            _warn_rin(np.flatnonzero(~rin_ok).tolist())
+                                                mesh, axis)
+        rows, layout = _ook_sweep_rows(
+            wins, slots, torch.as_tensor(bits[mine].astype(np.float32),
+                                         device=self.device),
+            self.params.sps, nslots, sps_resamp,
+            dict(rin_ok=flags, steps=_steps_rows(steps, self.device)))
+        r = _gathered_rows(rows, layout, mesh, axis)
         return SimpleNamespace(
-            ber=n_err / self.n_bits, n_errors=n_err,
-            threshold=host[:, 6].astype(np.float32), **res,
-            n_channels=n_channels, tx=bits.astype(np.uint8),
-            n_steps=steps, rin_ok=rin_ok)
+            threshold=r["rth"].astype(np.float32),
+            **{k: r[k] for k in ("mu0", "mu1", "s0", "s1", "er", "eye_h")},
+            **_sweep_result(r, n_channels, bits, self.n_bits))
 
     @torch.no_grad()
     def dsp_wdm_ppm(self, n_channels: int, M: int, decision: str = "soft",
@@ -973,53 +1101,29 @@ class LinkProgram(torch.nn.Module):
         ``bits``: (n_channels, n_sym*log2(M)) *information* bits (PRBS
         segments by default), encoded once on the host with
         ``PPM_ENCODER``.  Channel ``c`` uses the noise stream ``seed + c``
-        (``noise``: a list of per-channel draw dicts).  A ``mesh`` raises
-        ``NotImplementedError`` like :meth:`dsp_wdm`."""
-        if n_channels < 1:
-            raise ValueError("n_channels must be >= 1")
-        decision, k, n_sym = self._ppm_shape(M, decision)
-        if bits is None:
-            bits = prbs(prbs_order, length=n_channels * n_sym * k)[0]
-            bits = bits.reshape(n_channels, n_sym * k)
-        bits = np.asarray(bits)
-        if bits.shape != (n_channels, n_sym * k):
-            raise ValueError(
-                f"bits must have shape {(n_channels, n_sym * k)}, got "
-                f"{bits.shape}")
-        bits = bits.astype(np.uint8)
+        (``noise``: a list of per-channel draw dicts).  ``mesh``/``axis``
+        spread the channels over ranks as for :meth:`dsp_wdm`."""
+        decision, k, n_sym = _ppm_shape(self.n_bits, M, decision)
+        bits = _sweep_bits(bits, n_channels, n_sym * k,
+                           prbs_order).astype(np.uint8)
         slots_tx = np.stack([PPM_ENCODER(bits[c], M).data.astype(np.float32)
                              for c in range(n_channels)])
+        mine = self._channels(n_channels, mesh, axis)
         wins, slots, steps, flags = self._sweep(slots_tx, seed, noise,
-                                                nslots, mesh)
-        info = torch.as_tensor(bits, device=self.device)
-        if decision == "hard":
-            m = _eye_scalars(wins, self.params.sps, nslots, sps_resamp)
-        rows = []
-        for c in range(n_channels):
-            if decision == "soft":
-                rth = torch.full((), torch.nan, device=self.device)
-                n_err = _ppm_soft_errors(slots[c], info[c], M)
-            else:
-                m_c = {key: m[key][c]
-                       for key in ("mu0", "mu1", "s0", "s1", "threshold")}
-                rth, n_err = _ppm_hard_decide(
-                    m_c, slots[c], info[c], M, self._hdd_uniform(
-                        seed + c, n_sym, M,
-                        None if noise is None else noise[c]))
-            rows.append(torch.stack([rth.to(torch.float64),
-                                     n_err.to(torch.float64),
-                                     flags[c].to(torch.float64)]))
-        host = torch.stack(rows).cpu().numpy()  # the one read-back
-        n_err = host[:, 1].astype(np.int64)
-        rin_ok = host[:, 2] > 0
-        if not rin_ok.all():
-            _warn_rin(np.flatnonzero(~rin_ok).tolist())
-        rth = host[:, 0]
+                                                nslots, mesh, axis)
+        rows, layout = _ppm_sweep_rows(
+            wins, slots, torch.as_tensor(bits[mine], device=self.device), M,
+            decision, self.params.sps, nslots, sps_resamp,
+            lambda c: _hdd_uniform(
+                seed + mine[c], n_sym, M,
+                None if noise is None else noise[mine[c]], self.device),
+            dict(rin_ok=flags, steps=_steps_rows(steps, self.device)))
+        r = _gathered_rows(rows, layout, mesh, axis)
+        rth = r["rth"]
         return SimpleNamespace(
-            rin_ok=rin_ok, ber=n_err / (n_sym * k), n_errors=n_err, M=M,
-            decision=decision, n_channels=n_channels,
+            M=M, decision=decision,
             threshold=(None if np.isnan(rth).all() else rth),
-            n_steps=steps, tx=bits)
+            **_sweep_result(r, n_channels, bits, n_sym * k))
 
 
 def _rin_ok(flag: torch.Tensor) -> bool:
@@ -1031,15 +1135,41 @@ def _rin_ok(flag: torch.Tensor) -> bool:
 
 def build_link(spec: LinkSpec, n_bits: int,
                params: Optional[SimParams] = None,
-               return_field: bool = False, *, device=None) -> LinkProgram:
+               return_field: bool = False, mesh=None,
+               time_axis: str = "time", wdm_axis: Optional[str] = "wdm",
+               span_mesh=None, *, device=None):
     """Build the link described by ``spec`` for ``n_bits`` slots at the
     given (default: ``gv``'s current) simulation parameters on ``device``
     (``"cuda"``, ``"cuda:1"``, ``"cpu"``...; default: ``gv``'s device, the
     card unless ``gv(device=...)`` says otherwise).  A CUDA device with no
     card present raises: there is no CPU fallback.  ``return_field=True``
     adds the optical field before the photodiode to the program's outputs.
-    The sharded and pipelined programs (``mesh=``, ``span_mesh=``) are not
-    ported yet."""
+
+    ``mesh`` (a mesh of ranks with a ``time_axis`` and optionally a
+    ``wdm_axis``; :func:`~opticomlib_tpu_torch.parallel.make_link_mesh`)
+    builds the **sharded** fused link instead
+    (:class:`~opticomlib_tpu_torch.link_sharded.ShardedLinkProgram`, on the
+    mesh's device): each waveform's samples spread over the time axis
+    (exact pencil-FFT spectral operations, adaptive split-step with an
+    all-reduce(max) a step), channels over the wdm axis, the receivers'
+    scalars gathered.  ``span_mesh`` (the span-pipelined link) is not ported
+    yet."""
+    if mesh is not None and span_mesh is not None:
+        raise ValueError("pass either mesh= (time/wdm sharding) or "
+                         "span_mesh= (span pipelining), not both")
+    if span_mesh is not None:
+        raise NotImplementedError(
+            "span_mesh= (the span-pipelined link, parallel/pipeline.py and "
+            "link_pipeline.py) is not ported yet: ROADMAP.md Queue 1 item 5")
+    if mesh is not None:
+        from .link_sharded import ShardedLinkProgram
+        if device is not None and check_device(device).type != \
+                mesh.device.type:
+            raise ValueError(f"device {device} but the mesh computes on "
+                             f"{mesh.device}")
+        return ShardedLinkProgram(spec, n_bits, resolve_params(params), mesh,
+                                  time_axis=time_axis, wdm_axis=wdm_axis,
+                                  return_field=return_field)
     device = current_device() if device is None else check_device(device)
     return LinkProgram(spec, n_bits, resolve_params(params), device,
                        return_field=return_field)

@@ -86,19 +86,39 @@ def nl_halfstep_ref(A: torch.Tensor, coeff) -> tuple:
     return A * H, H
 
 
-def nl_halfstep(A: torch.Tensor, coeff) -> tuple:
+def _out(out, A: torch.Tensor, k: int) -> tuple:
+    """The ``k`` output tensors a wrapper writes: new ones like ``A``, or the
+    caller's ``out`` (contiguous, ``A``'s shape and dtype; a row of a larger
+    tensor, say)."""
+    if out is None:
+        return tuple(torch.empty_like(A) for _ in range(k))
+    for t in out:
+        _check(t, "out", A.dtype)
+        if t.shape != A.shape or t.device != A.device:
+            raise ValueError(f"out must be {tuple(A.shape)} on {A.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    return tuple(out)
+
+
+def nl_halfstep(A: torch.Tensor, coeff, out=None) -> tuple:
     """Frozen nonlinear half-step of the split-step solver.
 
     ``A``: complex64, any shape.  ``coeff``: ``gamma*h/2`` [1/W], a float.
     Returns ``(B, H)``: the rotated field ``B = A*exp(i*coeff*|A|^2)`` and
     the rotation ``H``, which the step applies again after the linear
-    substep (one cos/sin pass per step)."""
+    substep (one cos/sin pass per step).  ``out``: ``(B, H)`` to write
+    into."""
     _check(A, "A", torch.complex64)
     if not _on_cuda(A):
-        return nl_halfstep_ref(A, coeff)
+        B, H = nl_halfstep_ref(A, coeff)
+        if out is None:
+            return B, H
+        out = _out(out, A, 2)
+        out[0].copy_(B)
+        out[1].copy_(H)
+        return out
     from . import triton_kernels
-    B = torch.empty_like(A)
-    H = torch.empty_like(A)
+    B, H = _out(out, A, 2)
     if A.numel():
         triton_kernels.launch_nl_halfstep(A, float(coeff), B, H)
         LAUNCHES["nl_halfstep"] += 1
@@ -113,12 +133,13 @@ def cmul_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return A * B
 
 
-def cmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def cmul(A: torch.Tensor, B: torch.Tensor, out=None) -> torch.Tensor:
     """Complex product ``A * B`` of complex64 tensors: ``B`` has ``A``'s
     shape, or is 1-D along ``A``'s last axis and broadcast over its leading
     rows (a 2-pol field times one spectral factor).  The kernel rounds as
     ``A * B`` does on the card: ``re = fma(ar, br, -(ai*bi))``,
-    ``im = fma(ar, bi, ai*br)``."""
+    ``im = fma(ar, bi, ai*br)``.  ``out``: the tensor to write the product
+    into (it may be ``A``: each element is read before it is written)."""
     _check(A, "A", torch.complex64)
     _check(B, "B", torch.complex64)
     if B.shape != A.shape and not (B.ndim == 1 and A.ndim >= 1
@@ -126,11 +147,13 @@ def cmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"cmul takes B of A's shape {tuple(A.shape)} or a 1-D B along "
             f"A's last axis; got {tuple(B.shape)}")
+    C = None if out is None else _out((out,), A, 1)[0]
     if not _on_cuda(A, B):
-        return cmul_ref(A, B)
+        return cmul_ref(A, B) if C is None else torch.mul(A, B, out=C)
     from . import _build
     lib = _build.load_library("cmul")
-    C = torch.empty_like(A)
+    if C is None:
+        C = torch.empty_like(A)
     if A.numel():
         ncol = A.shape[-1] if A.ndim else 1
         with torch.cuda.device(A.device):

@@ -117,14 +117,17 @@ def _lin_factor(phi_w: torch.Tensor, alpha: np.float32,
 
 def _nl_l_nl_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
                   h: np.float32, gamma: np.float32,
-                  E: torch.Tensor = None) -> torch.Tensor:
+                  E: torch.Tensor = None, spectral=None) -> torch.Tensor:
     """One symmetric NL-L-NL split step (nonlinear operator frozen at the
     step start).  Pass a precomputed linear factor ``E`` when ``h`` is
-    loop-constant."""
+    loop-constant; ``spectral``: see :func:`_strang_step`."""
     B, H = kernels.nl_halfstep(A, gamma * (h / f32(2)))
     if E is None:
         E = _lin_factor(phi_w, alpha, h)
-    A = torch.fft.ifft(kernels.cmul(torch.fft.fft(B, dim=-1), E), dim=-1)
+    if spectral is None:
+        A = torch.fft.ifft(kernels.cmul(torch.fft.fft(B, dim=-1), E), dim=-1)
+    else:
+        A = spectral(B, E)
     return kernels.cmul(A, H)
 
 
@@ -177,16 +180,17 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
 
 
 def ssfm_scan_inside(A: torch.Tensor, phi_w: torch.Tensor, hs, gamma,
-                     alpha) -> torch.Tensor:
+                     alpha, spectral=None) -> torch.Tensor:
     """Fixed-schedule propagation over the float32 step sizes ``hs``.  The
     linear factor of the leading step size is built once; an off-schedule
-    step (the final remainder) builds its own."""
+    step (the final remainder) builds its own.  ``spectral``: see
+    :func:`_strang_step`."""
     alpha, gamma = f32(alpha), f32(gamma)
     hs = np.asarray(hs, dtype=np.float32)
     E0 = _lin_factor(phi_w, alpha, hs[0])
     for h in hs:
         E = E0 if h == hs[0] else None
-        A = _nl_l_nl_step(A, phi_w, alpha, h, gamma, E=E)
+        A = _nl_l_nl_step(A, phi_w, alpha, h, gamma, E=E, spectral=spectral)
     return A
 
 

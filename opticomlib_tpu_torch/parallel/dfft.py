@@ -56,13 +56,31 @@ def strided_k_local(q: int, P: int, B: int) -> np.ndarray:
     return q + P * np.arange(B, dtype=np.int64)
 
 
-def strided_w_grid(q: int, P: int, B: int, fs: float) -> np.ndarray:
+def strided_w_grid(q: int, P: int, B: int, fs: float,
+                   device=None) -> torch.Tensor:
     """Angular frequencies [rad/s] of the local spectrum slice on rank
-    ``q`` (fftfreq convention: bins >= N/2 wrap to negative), float64."""
+    ``q`` (fftfreq convention: bins >= N/2 wrap to negative): a float32
+    tensor on ``device`` (default the CPU), computed in the JAX function's
+    float32 operations and order: the wrapped bin index over ``N``, times
+    ``fs``, times 2*pi."""
     N = P * B
-    k = strided_k_local(q, P, B)
-    f = np.where(k < N - N // 2, k, k - N) / N * fs
-    return _2PI * f
+    k = q + P * torch.arange(B, dtype=torch.int64, device=device)
+    k = torch.where(k < N - N // 2, k, k - N).to(torch.float32)
+    # a tensor divisor: torch on CUDA turns division by a Python scalar into
+    # a multiplication by its reciprocal, which rounds differently
+    f = k / torch.tensor(N, dtype=torch.float32, device=device) * fs
+    return f * _2PI
+
+
+def strided_dispersion_phase(q: int, P: int, B: int, fs: float,
+                             beta_2: float, beta_3: float,
+                             device=None) -> torch.Tensor:
+    """Dispersion phase rate [rad/km] on rank ``q``'s strided bins, float32
+    as the JAX sharded solvers evaluate it in-graph:
+    ``beta_2/2*w**2 + beta_3/6*w**3`` with ``w`` in rad/ps."""
+    w = strided_w_grid(q, P, B, fs, device) * 1e-12
+    w2 = w * w
+    return w2 * (beta_2 / 2) + w2 * w * (beta_3 / 6)
 
 
 def _transform_consts(P: int, B: int, q: int, device: torch.device):

@@ -40,8 +40,9 @@ from ..ops import kernels
 from ..ops.ssfm import (_lin_factor, adaptive_h0, alpha_per_km,
                         dispersion_phase, max_power, ssfm_local_error_inside,
                         ssfm_o4_auto_inside, ssfm_o4_scan_inside,
-                        ssfm_step_schedule, ssfm_while_inside)
-from .dfft import pencil_fft, pencil_ifft, strided_w_grid
+                        ssfm_scan_inside, ssfm_step_schedule,
+                        ssfm_while_inside)
+from .dfft import pencil_fft, pencil_ifft, strided_dispersion_phase
 from .halo import exchange_halos, halo_width
 
 # the JAX module's names; ``LinkMesh`` and ``ShardedField`` are importable by
@@ -99,17 +100,39 @@ class MeshAxis(NamedTuple):
     ranks: tuple       # global ranks along the axis, in order
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN, "mean": dist.ReduceOp.SUM}
+
+
 class LinkMesh:
-    """A ('wdm', 'time') grid of ranks with the process groups the sharded
-    solver uses: this rank's row along 'time' (the transposes and halos)
-    and the whole mesh (the step-size reductions and the gather)."""
+    """A grid of ranks with named axes (the torch counterpart of
+    ``jax.sharding.Mesh(devices, axis_names)``, one rank a device): the
+    ('wdm', 'time') grid of :func:`make_link_mesh`, or any other names and
+    number of axes (:func:`make_mesh`).  Every axis has its process groups,
+    one a line of ranks along it, and the whole mesh has one; this rank
+    keeps its own line of each axis (:meth:`axis`).
 
-    axis_names = ("wdm", "time")
+    The collectives (:meth:`all_reduce`, :meth:`all_gather`,
+    :meth:`gather_rows`) run over one named axis, or the whole mesh with
+    ``axis=None``; every rank of the line (or mesh) calls them.  Complex
+    tensors cross as their float32 (re, im) pairs (NCCL has no complex
+    type)."""
 
-    def __init__(self, ranks: np.ndarray):
+    def __init__(self, ranks, axis_names=("wdm", "time")):
+        ranks = np.asarray(ranks, dtype=np.int64)
+        names = tuple(axis_names)
+        if ranks.ndim != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"a mesh of shape {ranks.shape} needs "
+                             f"{ranks.ndim} distinct axis names, got {names}")
+        for d in range(ranks.ndim):
+            # a process group orders its members by global rank, and the
+            # transforms take a rank's place in the group as its index
+            if (np.diff(ranks, axis=d) <= 0).any():
+                raise ValueError(f"ranks must increase along every axis; "
+                                 f"'{names[d]}' of {ranks.tolist()} does not")
         self.ranks = ranks
-        n_wdm, n_time = ranks.shape
-        self.shape = {"wdm": n_wdm, "time": n_time}
+        self.axis_names = names
+        self.shape = dict(zip(names, (int(s) for s in ranks.shape)))
         self.rank = dist.get_rank()
         # a card for NCCL, the CPU for gloo
         self.device = (torch.device("cuda", torch.cuda.current_device())
@@ -119,7 +142,7 @@ class LinkMesh:
         if len(where) != 1:
             raise ValueError(
                 f"rank {self.rank} is not in the mesh {ranks.tolist()}")
-        self.coords = {"wdm": int(where[0][0]), "time": int(where[0][1])}
+        self.coords = dict(zip(names, (int(i) for i in where[0])))
         world = list(range(dist.get_world_size()))
 
         def group(members):
@@ -129,26 +152,112 @@ class LinkMesh:
 
         # every rank of the world creates every group, in the same order
         self.all_group = group(ranks.reshape(-1))
-        rows = ([self.all_group] if n_wdm == 1
-                else [group(ranks[i]) for i in range(n_wdm)])
-        self._time = MeshAxis(rows[self.coords["wdm"]], n_time,
-                              self.coords["time"],
-                              tuple(int(r) for r in
-                                    ranks[self.coords["wdm"]]))
+        self._axes = {}
+        for d, name in enumerate(names):
+            lines = np.moveaxis(ranks, d, -1).reshape(-1, ranks.shape[d])
+            mine = None
+            for line in lines:
+                g = self.all_group if len(lines) == 1 else group(line)
+                if self.rank in line:
+                    mine = MeshAxis(g, int(ranks.shape[d]),
+                                    self.coords[name],
+                                    tuple(int(r) for r in line))
+            self._axes[name] = mine
 
     def axis(self, name: str) -> MeshAxis:
-        """The 'time' axis as this rank sees it (the only axis with
-        collectives of its own; 'wdm' carries independent channels)."""
-        if name != "time":
-            raise ValueError("only the 'time' axis has a process group")
-        return self._time
+        """The axis ``name`` as this rank sees it: its line's group, size and
+        this rank's index along it."""
+        if name not in self._axes:
+            raise ValueError(
+                f"the mesh has no axis '{name}' (axes {self.axis_names})")
+        return self._axes[name]
+
+    def size(self, name: Optional[str]) -> int:
+        """Ranks along ``name``: 1 for ``None`` or a name the mesh lacks."""
+        return self.shape.get(name, 1) if name is not None else 1
+
+    def index(self, name: Optional[str]) -> int:
+        """This rank's place along ``name`` (0 where :meth:`size` is 1)."""
+        return self.coords.get(name, 0) if name is not None else 0
+
+    # -- collectives --
+    def _group(self, axis):
+        return self.all_group if axis is None else self.axis(axis).group
+
+    def _members(self, axis) -> int:
+        return self.ranks.size if axis is None else self.axis(axis).size
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum",
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """``t`` reduced (``"sum"``, ``"max"``, ``"min"`` or ``"mean"``)
+        over the ranks of this rank's line along ``axis`` (the whole mesh
+        for ``None``): a new tensor, the same on every rank of the line."""
+        out = (torch.view_as_real(t) if t.is_complex() else t).clone(
+            memory_format=torch.contiguous_format)
+        if out.dtype == torch.bool:
+            out = out.to(torch.uint8)
+        # a view: a 0-d value is reduced as one element
+        dist.all_reduce(out.reshape(-1), op=_OPS[op], group=self._group(axis))
+        if op == "mean":
+            out = out / self._members(axis)
+        if t.dtype == torch.bool:
+            out = out.to(torch.bool)
+        return torch.view_as_complex(out) if t.is_complex() else out
+
+    def all_gather(self, t: torch.Tensor,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """``t`` of every rank of this rank's line along ``axis`` (the whole
+        mesh for ``None``), stacked along a new leading dimension in the
+        order of the line (of ``ranks.reshape(-1)``)."""
+        mine = torch.view_as_real(t) if t.is_complex() else t
+        mine = mine.contiguous()
+        parts = [torch.empty_like(mine) for _ in range(self._members(axis))]
+        dist.all_gather(parts, mine, group=self._group(axis))
+        if axis is None:
+            # the group lists its members by global rank
+            by_rank = dict(zip(sorted(self.ranks.reshape(-1).tolist()),
+                               parts))
+            parts = [by_rank[int(r)] for r in self.ranks.reshape(-1)]
+        out = torch.stack(parts)
+        return torch.view_as_complex(out) if t.is_complex() else out
+
+    def gather_rows(self, t: torch.Tensor,
+                    axis: Optional[str]) -> torch.Tensor:
+        """This rank's block of rows ``(r, ...)`` and those of the others
+        along ``axis``, concatenated ``(size * r, ...)`` in axis order: the
+        rows of every 'wdm' row of the mesh on every rank (``axis=None``
+        leaves ``t`` as it is: its rows are already all of them)."""
+        if axis is None:
+            return t
+        return self.all_gather(t, axis).reshape((-1,) + tuple(t.shape[1:]))
 
     def __repr__(self):
-        return (f"LinkMesh(wdm={self.shape['wdm']}, time={self.shape['time']}"
-                f", rank {self.rank} at {self.coords}, {self.device})")
+        shape = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return (f"LinkMesh({shape}, rank {self.rank} at {self.coords}, "
+                f"{self.device})")
 
 
 _meshes: dict = {}
+
+
+def make_mesh(ranks, axis_names) -> LinkMesh:
+    """A mesh of the global ``ranks`` (an array whose shape is the mesh's)
+    with one name an axis: the counterpart of
+    ``jax.sharding.Mesh(devices, axis_names)``, e.g.
+    ``make_mesh(range(4), ("wdm",))`` or ``make_mesh(np.arange(4).reshape(2,
+    2), ("ch", "t"))``.  Every rank of the world makes the same call (the
+    mesh creates process groups); a mesh is built once per (ranks, names)
+    and kept."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "a mesh needs torch.distributed: call initialize_multihost() "
+            "first (one rank is enough)")
+    ranks = np.asarray(list(ranks) if not isinstance(ranks, np.ndarray)
+                       else ranks, dtype=np.int64)
+    key = (ranks.shape, tuple(ranks.reshape(-1).tolist()), tuple(axis_names))
+    if key not in _meshes:
+        _meshes[key] = LinkMesh(ranks, axis_names)
+    return _meshes[key]
 
 
 def make_link_mesh(n_wdm: int = 1, n_time: Optional[int] = None,
@@ -161,6 +270,7 @@ def make_link_mesh(n_wdm: int = 1, n_time: Optional[int] = None,
     (:func:`~opticomlib_tpu_torch.parallel.multihost.initialize_multihost`)
     and every rank of the world must make the same call: the mesh creates
     process groups.  A mesh is built once per (shape, ranks) and kept.
+    Other names and shapes: :func:`make_mesh`.
     """
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
@@ -174,65 +284,97 @@ def make_link_mesh(n_wdm: int = 1, n_time: Optional[int] = None,
     if n > len(devices):
         raise ValueError(
             f"mesh {n_wdm}x{n_time} needs {n} devices, have {len(devices)}")
-    key = (n_wdm, n_time, tuple(devices[:n]))
-    if key not in _meshes:
-        _meshes[key] = LinkMesh(
-            np.asarray(devices[:n], dtype=np.int64).reshape(n_wdm, n_time))
-    return _meshes[key]
+    return make_mesh(np.asarray(devices[:n]).reshape(n_wdm, n_time),
+                     ("wdm", "time"))
 
 
 # ---------------------------------------------------------------------------
 # the sharded field
 # ---------------------------------------------------------------------------
+def _whole_of(x):
+    return x.whole() if isinstance(x, ShardedField) else x
+
+
+def _unshard(obj):
+    """``obj`` with every :class:`ShardedField` in it (also inside lists,
+    tuples and dicts) replaced by its whole tensor."""
+    if isinstance(obj, ShardedField):
+        return obj.whole()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_unshard(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _unshard(v) for k, v in obj.items()}
+    return obj
+
+
+def _delegate(name):
+    def op(self, *args):
+        return getattr(self.whole(), name)(*map(_whole_of, args))
+    op.__name__ = name
+    return op
+
+
 class ShardedField:
     """A waveform spread over a :class:`LinkMesh`: this rank's block
-    (``local``, complex64 on the rank's device), the global ``shape`` and
-    the mesh.  Samples are split over 'time'; the rows of a 2-D field over
-    ``wdm_axis`` ('wdm'), or replicated (``None``).
+    (``local``, on the rank's device: the complex64 field, or a real
+    waveform of the sharded link), the global ``shape`` and the mesh.
+    Samples (the last axis) are split over ``time_axis`` ('time'); the rows
+    (the first axis) of a field of several over ``wdm_axis`` ('wdm'), or
+    held whole by every rank (``None``).
 
-    ``np.asarray(field)`` / :meth:`gather` give the whole field as a host
-    array: a collective that every rank of the mesh calls.  ``n_steps`` is
-    the step count of the propagation that produced it, where one did.
+    The next sharded call (``ssfm_sharded``, ``FIBER(mesh=...)``) takes it
+    as it is, each block where it lies.  Anything else sees the whole
+    field, as the JAX package's global array is seen: tensor operators,
+    ``torch`` functions, indexing and tensor methods act on
+    :meth:`whole`, the field gathered onto this rank's device (a collective
+    that every rank of the mesh calls, made once and kept), and
+    ``np.asarray(field)`` / :meth:`gather` give it as a host array.
+    ``shape``, ``ndim``, ``dtype``, ``device`` and ``numel()`` are the
+    whole field's and need no gather.  ``n_steps`` is the step count of the
+    propagation that produced it, where one did.
     """
 
     def __init__(self, local: torch.Tensor, mesh: LinkMesh, shape,
-                 wdm_axis: Optional[str]):
+                 wdm_axis: Optional[str], time_axis: str = "time"):
         self.local = local
         self.mesh = mesh
         self.shape = tuple(int(s) for s in shape)
-        self.wdm_axis = wdm_axis if len(self.shape) == 2 else None
+        self.wdm_axis = wdm_axis if len(self.shape) >= 2 else None
+        self.time_axis = time_axis
         self.n_steps: Optional[int] = None
-        if tuple(local.shape) != self.block_shape(mesh, self.shape,
-                                                  self.wdm_axis):
+        self._whole = None
+        if tuple(local.shape) != self.block_shape(
+                mesh, self.shape, self.wdm_axis, time_axis):
             raise ValueError(
                 f"block {tuple(local.shape)} does not fit a field "
                 f"{self.shape} on {mesh!r}")
 
     # -- layout --
     @staticmethod
-    def block_shape(mesh, shape, wdm_axis):
-        n_time = mesh.shape["time"]
-        rows = (() if len(shape) == 1 else
-                (shape[0] // (mesh.shape["wdm"] if wdm_axis else 1),))
-        return rows + (shape[-1] // n_time,)
+    def block_shape(mesh, shape, wdm_axis, time_axis="time"):
+        lead = list(shape[:-1])
+        if lead and wdm_axis:
+            lead[0] //= mesh.size(wdm_axis)
+        return tuple(lead) + (shape[-1] // mesh.size(time_axis),)
 
     @staticmethod
-    def block_indices(mesh, shape, wdm_axis, coords=None):
+    def block_indices(mesh, shape, wdm_axis, coords=None, time_axis="time"):
         """Global ``[[start, stop], ...]`` bounds, one pair a dimension, of
         the block of the rank at ``coords`` (default: this rank)."""
         coords = mesh.coords if coords is None else coords
-        B = shape[-1] // mesh.shape["time"]
-        t = [coords["time"] * B, (coords["time"] + 1) * B]
-        if len(shape) == 1:
-            return [t]
-        if wdm_axis:
-            R = shape[0] // mesh.shape["wdm"]
-            return [[coords["wdm"] * R, (coords["wdm"] + 1) * R], t]
-        return [[0, shape[0]], t]
+        B = shape[-1] // mesh.size(time_axis)
+        j = coords.get(time_axis, 0)
+        out = [[0, int(d)] for d in shape[:-1]] + [[j * B, (j + 1) * B]]
+        if len(shape) > 1 and wdm_axis:
+            R = shape[0] // mesh.size(wdm_axis)
+            i = coords.get(wdm_axis, 0)
+            out[0] = [i * R, (i + 1) * R]
+        return out
 
     @property
     def indices(self):
-        return self.block_indices(self.mesh, self.shape, self.wdm_axis)
+        return self.block_indices(self.mesh, self.shape, self.wdm_axis,
+                                  time_axis=self.time_axis)
 
     #: what the signal classes look for in a payload (they do not import
     #: this module)
@@ -250,51 +392,62 @@ class ShardedField:
     def device(self):
         return self.local.device
 
-    # -- no tensor algebra: a block is not the field --
-    def _no_algebra(self, *args, **kwargs):
-        raise TypeError(
-            "a ShardedField is spread over the ranks of its mesh and takes "
-            "no tensor algebra: hand it to the next sharded call "
-            "(FIBER(mesh=...), ssfm_sharded), work on this rank's block "
-            "(.local), or gather the whole field first (.gather(), "
-            "to_numpy())")
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
 
-    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _no_algebra
-    __truediv__ = __rtruediv__ = __pow__ = __neg__ = __abs__ = _no_algebra
-    __getitem__ = __matmul__ = _no_algebra
+    # -- the whole field --
+    def whole(self) -> torch.Tensor:
+        """The whole field as a tensor on this rank's device: an all-gather
+        of the blocks over the mesh, made on the first call and kept.  Every
+        rank of the mesh calls it."""
+        if self._whole is None:
+            mesh = self.mesh
+            blocks = mesh.all_gather(self.local)
+            out = torch.empty(self.shape, dtype=self.local.dtype,
+                              device=self.local.device)
+            for k, idx in enumerate(np.ndindex(*mesh.ranks.shape)):
+                bounds = self.block_indices(
+                    mesh, self.shape, self.wdm_axis,
+                    dict(zip(mesh.axis_names, idx)), self.time_axis)
+                out[tuple(slice(a, b) for a, b in bounds)] = blocks[k]
+            self._whole = out
+        return self._whole
 
-    def __getattr__(self, name):
-        # only reached for a name the class does not have: a tensor method
-        # called on the payload of a sharded signal
-        if name.startswith("__"):
-            raise AttributeError(name)
-        raise AttributeError(
-            f"ShardedField has no '{name}': the field is spread over the "
-            "ranks of its mesh; use .local (this rank's block) or .gather() "
-            "(the whole field, a collective)")
-
-    # -- the gather --
     def gather(self) -> np.ndarray:
-        """The whole field as a host complex64 array.  Every rank of the
-        mesh must call it (an all-gather of the blocks)."""
-        mesh = self.mesh
-        mine = torch.view_as_real(self.local.contiguous())
-        blocks = [torch.empty_like(mine) for _ in range(mesh.ranks.size)]
-        dist.all_gather(blocks, mine, group=mesh.all_group)
-        out = np.empty(self.shape, dtype=np.complex64)
-        k = 0
-        for i in range(mesh.shape["wdm"]):
-            for j in range(mesh.shape["time"]):
-                idx = self.block_indices(mesh, self.shape, self.wdm_axis,
-                                         {"wdm": i, "time": j})
-                out[tuple(slice(a, b) for a, b in idx)] = (
-                    torch.view_as_complex(blocks[k]).cpu().numpy())
-                k += 1
-        return out
+        """The whole field as a host array (see :meth:`whole`)."""
+        return self.whole().cpu().numpy()
 
     def __array__(self, dtype=None, copy=None):
         out = self.gather()
         return out if dtype is None else out.astype(dtype)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return func(*_unshard(args), **_unshard(kwargs or {}))
+
+    __add__, __radd__ = _delegate("__add__"), _delegate("__radd__")
+    __sub__, __rsub__ = _delegate("__sub__"), _delegate("__rsub__")
+    __mul__, __rmul__ = _delegate("__mul__"), _delegate("__rmul__")
+    __truediv__ = _delegate("__truediv__")
+    __rtruediv__ = _delegate("__rtruediv__")
+    __pow__, __rpow__ = _delegate("__pow__"), _delegate("__rpow__")
+    __neg__, __abs__ = _delegate("__neg__"), _delegate("__abs__")
+    __getitem__, __iter__ = _delegate("__getitem__"), _delegate("__iter__")
+    __matmul__ = _delegate("__matmul__")
+    __eq__, __ne__ = _delegate("__eq__"), _delegate("__ne__")
+    __lt__, __le__ = _delegate("__lt__"), _delegate("__le__")
+    __gt__, __ge__ = _delegate("__gt__"), _delegate("__ge__")
+    __hash__ = object.__hash__
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getattr__(self, name):
+        # only reached for a name the class does not have: a tensor
+        # attribute or method, which the whole field answers
+        if name.startswith("__") or name in ("local", "mesh", "_whole"):
+            raise AttributeError(name)
+        return getattr(self.whole(), name)
 
     def __repr__(self):
         return (f"ShardedField(shape={self.shape}, block "
@@ -302,23 +455,29 @@ class ShardedField:
                 f"{self.mesh!r})")
 
 
-def shard_waveform(A, mesh: LinkMesh, wdm_axis: Optional[str] = "wdm"
-                   ) -> ShardedField:
+def shard_waveform(A, mesh: LinkMesh, wdm_axis: Optional[str] = "wdm",
+                   time_axis: str = "time") -> ShardedField:
     """Place a (channels, nsamples) or (nsamples,) field on the mesh with
-    channels over ``wdm_axis`` (None -> every 'wdm' row holds all channels)
-    and samples over 'time'.  ``A``: the whole field on every rank (host
-    data or a tensor; each rank keeps its block, on its device), or a
-    :class:`ShardedField` of this mesh and layout, returned as it is.
+    channels over ``wdm_axis`` (None, or a name the mesh lacks -> every
+    rank holds all channels) and samples over ``time_axis``.  ``A``: the
+    whole field on every rank (host data or a tensor; each rank keeps its
+    block, on its device), or a :class:`ShardedField` of this mesh and
+    layout, returned as it is.
 
     A tensor must lie where the mesh computes (``mesh.device``: the rank's
     card under NCCL, the CPU under gloo): a tensor on the card handed to a
     CPU mesh raises, it is not copied to the host."""
+    mesh.axis(time_axis)
+    if wdm_axis is not None and wdm_axis not in mesh.axis_names:
+        wdm_axis = None
     if isinstance(A, ShardedField):
         want = wdm_axis if A.ndim == 2 else None
-        if A.mesh is not mesh or A.wdm_axis != want:
+        if (A.mesh is not mesh or A.wdm_axis != want
+                or A.time_axis != time_axis):
             raise ValueError(
-                f"{A!r} is laid out for another mesh or wdm_axis "
-                f"(asked: {mesh!r}, wdm_axis={wdm_axis!r}); gather it first")
+                f"{A!r} is laid out for another mesh or axes (asked: "
+                f"{mesh!r}, wdm_axis={wdm_axis!r}, time_axis="
+                f"{time_axis!r}); gather it first")
         return A
     if not isinstance(A, torch.Tensor):
         A = torch.from_numpy(np.asarray(A))
@@ -332,17 +491,19 @@ def shard_waveform(A, mesh: LinkMesh, wdm_axis: Optional[str] = "wdm"
     shape = tuple(A.shape)
     if len(shape) not in (1, 2):
         raise ValueError(f"field must be 1-D or 2-D, got shape {shape}")
-    if shape[-1] % mesh.shape["time"]:
+    n_time = mesh.size(time_axis)
+    if shape[-1] % n_time:
         raise ValueError(f"nsamples {shape[-1]} not divisible by time "
-                         f"shards {mesh.shape['time']}")
+                         f"shards {n_time}")
     wdm_axis = wdm_axis if len(shape) == 2 else None
-    if wdm_axis and shape[0] % mesh.shape["wdm"]:
+    if wdm_axis and shape[0] % mesh.size(wdm_axis):
         raise ValueError(f"{shape[0]} channels not divisible by wdm shards "
-                         f"{mesh.shape['wdm']}")
-    idx = ShardedField.block_indices(mesh, shape, wdm_axis)
+                         f"{mesh.size(wdm_axis)}")
+    idx = ShardedField.block_indices(mesh, shape, wdm_axis,
+                                     time_axis=time_axis)
     local = A[tuple(slice(a, b) for a, b in idx)].to(
         device=mesh.device, dtype=torch.complex64).contiguous()
-    return ShardedField(local, mesh, shape, wdm_axis)
+    return ShardedField(local, mesh, shape, wdm_axis, time_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -360,12 +521,6 @@ def _plan_cache_put(key, plan):
     _plan_cache.move_to_end(key)
     while len(_plan_cache) > _PLAN_CACHE_MAX:
         _plan_cache.popitem(last=False)
-
-
-def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
-    flat = t.reshape(-1)  # a view: a 0-d value is reduced as one element
-    dist.all_reduce(flat, op=op, group=group)
-    return t
 
 
 def ssfm_sharded(
@@ -446,8 +601,6 @@ def ssfm_sharded(
                 "(method='pencil' or 'auto'); the overlap halo width is "
                 "derived for the reference step")
         method = "pencil"
-    if time_axis != "time" or wdm_axis not in ("wdm", None):
-        raise ValueError("the mesh's axes are named 'time' and 'wdm'")
     if ckpt_dir is not None:
         return _ssfm_sharded_resumable(
             A, mesh, fs, length, alpha, beta_2, beta_3, gamma, h,
@@ -460,7 +613,8 @@ def ssfm_sharded(
     if n % n_time:
         raise ValueError(f"nsamples {n} not divisible by time shards {n_time}")
     block = n // n_time
-    x = shard_waveform(A, mesh, wdm_axis if len(shape) == 2 else None)
+    x = shard_waveform(A, mesh, wdm_axis if len(shape) == 2 else None,
+                       time_axis)
     wdm_axis = x.wdm_axis
 
     adaptive = h is None
@@ -476,13 +630,13 @@ def ssfm_sharded(
     # collectives: the adaptive max reduction must see every block of the
     # waveform: the time blocks and (parity with the single-device solver,
     # which maxes over the whole array) the channels
-    group = axis.group if wdm_axis is None else mesh.all_group
+    over = time_axis if wdm_axis is None else None
 
     def reduce_max(m):
-        return _all_reduce(m, dist.ReduceOp.MAX, group)
+        return mesh.all_reduce(m, "max", over)
 
     def reduce_sum(s):
-        return _all_reduce(s, dist.ReduceOp.SUM, group)
+        return mesh.all_reduce(s, "sum", over)
 
     if adaptive and method == "overlap":
         # worst-case adaptive step (sizes the overlap halo):
@@ -511,10 +665,9 @@ def ssfm_sharded(
                 f"pencil FFT needs block ({block}) divisible by time shards "
                 f"({n_time}) — i.e. nsamples divisible by n_time^2")
         # the linear operator on the strided spectrum layout this rank owns
-        # after pencil_fft
-        plan = dict(phi=torch.as_tensor(dispersion_phase(
-            strided_w_grid(axis.index, n_time, block, fs), beta_2, beta_3),
-            device=mesh.device))
+        # after pencil_fft, in float32 as the JAX solver evaluates it
+        plan = dict(phi=strided_dispersion_phase(
+            axis.index, n_time, block, fs, beta_2, beta_3, mesh.device))
         _plan_cache_put(cache_key, plan)
     elif method == "overlap":
         # adaptive mode: truncation error feeds back through the step
@@ -578,15 +731,9 @@ def ssfm_sharded(
                     a, _lin_factor(phi, a_km, hh)),
                 h_max=h_for_halo if method == "overlap" else None)
         else:
-            # fixed schedule: the linear factor of the leading step size is
-            # built once; an off-schedule step (the remainder) builds its own
-            y, steps = x.local, len(hs)
-            E0 = _lin_factor(phi, a_km, hs[0])
-            for hh in hs:
-                E = E0 if hh == hs[0] else _lin_factor(phi, a_km, hh)
-                B, rot = kernels.nl_halfstep(y, g32 * (hh / f32(2)))
-                y = kernels.cmul(spectral(B, E), rot)
-    out = ShardedField(y, mesh, shape, wdm_axis)
+            y, steps = ssfm_scan_inside(x.local, phi, hs, g32, a_km,
+                                        spectral=spectral), len(hs)
+    out = ShardedField(y, mesh, shape, wdm_axis, time_axis)
     out.n_steps = int(steps)
     return out
 
@@ -619,7 +766,8 @@ def _ssfm_sharded_resumable(A, mesh, fs, length, alpha, beta_2, beta_3,
                      [int(r) for r in mesh.ranks.reshape(-1)]])
     ck = PropagationCheckpointer(
         ckpt_dir, config=cfg, shard=mesh.rank if nproc > 1 else None)
-    layout = wdm_axis if len(shape) == 2 else None
+    layout = (wdm_axis if len(shape) == 2 and wdm_axis in mesh.axis_names
+              else None)
 
     state = ck.latest() if nproc == 1 else _multihost_agreed_state(ck, mesh)
     if state is not None:
@@ -627,17 +775,17 @@ def _ssfm_sharded_resumable(A, mesh, fs, length, alpha, beta_2, beta_3,
         block = (re + 1j * im).astype(np.complex64)
         if nproc > 1:
             if extra["indices"] != [ShardedField.block_indices(
-                    mesh, shape, layout)]:
+                    mesh, shape, layout, time_axis=time_axis)]:
                 raise ValueError(
                     f"checkpoint block {extra['indices']} is not this "
                     f"rank's block of the field")
             A = ShardedField(torch.as_tensor(block[0], device=mesh.device),
-                             mesh, shape, layout)
+                             mesh, shape, layout, time_axis)
         else:
-            A = shard_waveform(block, mesh, layout)
+            A = shard_waveform(block, mesh, layout, time_axis)
     else:
         step, z = 0, 0.0
-        A = shard_waveform(A, mesh, layout)
+        A = shard_waveform(A, mesh, layout, time_axis)
     while z < length - 1e-9:
         this = min(seg, length - z)
         A = ssfm_sharded(A, mesh, fs, this, alpha=alpha, beta_2=beta_2,

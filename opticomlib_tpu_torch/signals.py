@@ -10,9 +10,10 @@
   reductions (``power``, ``mean``, ``std``) and ``to_numpy`` come back to
   the host.  The payload of ``FIBER(mesh=...)``'s output is a
   :class:`~opticomlib_tpu_torch.parallel.fiber.ShardedField`: each rank
-  holds its block; the next ``FIBER(mesh=...)`` takes it where it lies and
-  ``to_numpy`` gathers it (a collective every rank calls).  The signal
-  algebra does not act on it.
+  holds its block, and the next ``FIBER(mesh=...)`` takes it where it lies.
+  Everything else (the signal algebra, the other devices, ``to_numpy``)
+  sees the whole field, gathered onto each rank's device: a collective that
+  every rank makes, as SPMD code makes every call.
 * "No noise" is the absorbing :data:`NULL` sentinel (reference
   typing.py:56-93): ``x + NULL == x``, ``x * NULL == NULL``, so noiseless
   paths cost nothing.
@@ -743,17 +744,15 @@ class OpticalSignal(ElectricalSignal):
                    else NULL)
 
         if _is_sharded(sig):
-            # FIBER(mesh=)'s output: kept as it lies, one row a polarization
-            if (_has_noise(noi) or n_pol not in (None, sig.ndim)
-                    or (sig.ndim == 2 and sig.shape[0] != 2)):
-                raise ValueError(
-                    f"a sharded payload is (n,) or (2, n), carries no noise "
-                    f"track and keeps its n_pol; got shape {sig.shape}, "
-                    f"n_pol={n_pol}")
-            self.n_pol = sig.ndim
-            self.signal, self.noise = sig, NULL
-            self.execution_time = 0.0
-            return
+            if (not _has_noise(noi) and n_pol in (None, sig.ndim)
+                    and (sig.ndim == 1 or sig.shape[0] == 2)):
+                # FIBER(mesh=)'s output: kept as it lies, one row a
+                # polarization
+                self.n_pol = sig.ndim
+                self.signal, self.noise = sig, NULL
+                self.execution_time = 0.0
+                return
+            sig = sig.whole()   # anything else: the whole field
 
         if sig.ndim > 2 or (sig.ndim > 1 and sig.shape[0] > 2) \
                 or sig.numel() < 1:

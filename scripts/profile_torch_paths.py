@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's receiver paths goes, on one card.
 
-    python3 scripts/profile_torch_paths.py [hist] [config3] [config5] [eye] [sharded]
+    python3 scripts/profile_torch_paths.py [hist] [config3] [config5] [eye] [sharded] [link_sharded]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), one steady call
 (after one warm-up call) of each named path at the sizes of
@@ -12,7 +12,11 @@ a row of each histogram wrapper at (1, 4096) over 2^20 eye-like samples, by
 rows and by pairs, with the host time of the wrapper itself (``cProfile``);
 ``sharded``: config 2's 50 km fiber at 2^24 samples through ``ssfm_sharded``
 at world size 1 over NCCL (pencil adaptive, pencil and overlap at a fixed
-1 km step) beside the unsharded steps on a phase grid kept on the card.
+1 km step) beside the unsharded steps on a phase grid kept on the card;
+``link_sharded``: the sharded fused link at world size 1 over NCCL, config
+5's ``dsp_wdm(16)`` (16 x 2^24 samples) and config 2's ``dsp``, with the
+peak device memory of the config-5 call, of its chain and of each of its
+stages.
 For each it prints the wall time, the device's busy time and idle share
 (the union of the kernels' and copies' intervals against the wall time), and
 the device time by kernel name.  With no argument it profiles the first
@@ -48,7 +52,8 @@ def profiled(label, fn, top=12):
 
 def main():
     which = set(sys.argv[1:]) or {"hist", "config3", "config5", "eye"}
-    if not which <= {"hist", "config3", "config5", "eye", "sharded"}:
+    if not which <= {"hist", "config3", "config5", "eye", "sharded",
+                     "link_sharded"}:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -151,6 +156,59 @@ def main():
                 A0, mesh, params.fs, 50.0, h=1.0, **fib))
             profiled("sharded overlap, h = 1 km", lambda: ssfm_sharded(
                 A0, mesh, params.fs, 50.0, h=1.0, method="overlap", **fib))
+            dist.destroy_process_group()
+
+    if "link_sharded" in which:
+        import tempfile
+
+        import torch.distributed as dist
+
+        from opticomlib_tpu_torch.parallel import (initialize_multihost,
+                                                   make_link_mesh)
+        spec = cs.config2_spec(link)
+        params5 = SimParams.create(sps=cs.SPS5, R=cs.R, _warn=False)
+        bits5 = prbs(23, length=cs.N_CH5 * cs.N_BITS5)[0].reshape(
+            cs.N_CH5, -1)
+        with tempfile.TemporaryDirectory() as tmp:
+            initialize_multihost(f"file://{tmp}/rendezvous", 1, 0)
+            mesh = make_link_mesh(1, 1)
+            prog = link.build_link(spec, cs.N_BITS5, params5, mesh=mesh)
+            profiled("sharded config 5 dsp_wdm(16)", lambda: prog.dsp_wdm(
+                cs.N_CH5, bits=bits5, seed=5))
+            # peak device memory, lap by lap: up to each stage, in it, the
+            # photodiode and LPF after the stages, the receivers
+            laps = []
+
+            def lap(label):
+                torch.cuda.synchronize()
+                laps.append((label, torch.cuda.max_memory_allocated()))
+                torch.cuda.reset_peak_memory_stats()
+
+            core, stage = prog._core, prog._stage
+
+            def staged(f, st, cc, *a):
+                lap(f"before the {cc['kind']} stage")
+                out = stage(f, st, cc, *a)
+                lap(f"the {cc['kind']} stage")
+                return out
+
+            def chain(*a):
+                out = core(*a)
+                lap("photodiode, LPF")
+                return out
+
+            prog._core, prog._stage = chain, staged
+            lap("(reset)")
+            prog.dsp_wdm(cs.N_CH5, bits=bits5, seed=5)
+            lap("receivers")
+            for label, peak in laps[1:]:
+                print(f"    peak {label}: {peak / 2**30:.2f} GiB", flush=True)
+            del prog
+            prog = link.build_link(spec, cs.N_BITS, SimParams.create(
+                sps=cs.SPS, R=cs.R, _warn=False), mesh=mesh)
+            bits = prbs(15, length=cs.N_BITS)[0]
+            profiled("sharded config 2 dsp", lambda: prog.dsp(bits=bits,
+                                                               seed=3))
             dist.destroy_process_group()
 
 

@@ -94,6 +94,8 @@ FIELD_CASES = {
 #: the staged drop-in: gv(sps=16, R=10e9), an OpticalSignal of this input
 FIBER_KW = dict(length=20, alpha=0.2, beta_2=-20.0, gamma=1.3, phi_max=0.05)
 FIBER_INPUT = ("band", 2**14, 7, 0.3)
+#: the photodiode after it, noiseless
+PD_KW = dict(BW=7.5e9, include_noise="none")
 
 CRASH_KW = dict(fs=80e9, length=8.0, alpha=0.2, beta_2=-21.0, gamma=1.3,
                 h=0.5, segment_km=2.0)
@@ -323,12 +325,15 @@ def check_foreign_device_rejected(ctx):
 
 
 def check_sharded_payload_no_algebra(ctx):
-    """The payload of FIBER(mesh=)'s output gathers through to_numpy and
-    np.asarray and refuses the signal algebra with an error that says what
-    to do; the signal classes know it only by its mark."""
+    """The payload of FIBER(mesh=)'s output takes the signal algebra,
+    tensor methods and indexing as the whole field, as the JAX signal's
+    global array does (each rank gathers it, once); it stays sharded for
+    the next FIBER(mesh=); the signal classes know it only by its mark."""
     import sys as _sys
 
+    import torch
     from opticomlib_tpu_torch.devices import FIBER
+    from opticomlib_tpu_torch.parallel.fiber import ShardedField
     from opticomlib_tpu_torch.signals import OpticalSignal
     gv = _gv16(128)
     A = bandlimited(2048, 22, 0.1)
@@ -338,32 +343,42 @@ def check_sharded_payload_no_algebra(ctx):
     assert whole.shape == (2048,) and whole.dtype == np.complex64
     assert np.array_equal(np.asarray(o), whole)
     assert o.shape == (2048,) and o.n_pol == 1 and "ShardedField" in repr(o)
+    ref = OpticalSignal(torch.from_numpy(whole))
+    for op in (lambda s: s * 2.0, lambda s: s + s, lambda s: -s,
+               lambda s: s[:16], lambda s: s ** 2, lambda s: s.conj(),
+               lambda s: s("w"), lambda s: s * s.conj()):
+        got, want = op(o), op(ref)
+        assert np.array_equal(got.to_numpy(), want.to_numpy())
+    assert torch.equal(o.abs(), ref.abs())
+    assert np.array_equal(o.power(), ref.power())
+    assert torch.equal(o.signal + 1, ref.signal + 1)
+    assert torch.equal(torch.abs(o.signal), ref.signal.abs())
+    noisy = OpticalSignal(o.signal, noise=np.zeros(2048))
+    assert np.array_equal(noisy.to_numpy(), whole)
+    assert isinstance(o.signal, ShardedField)      # still sharded
     gv.default()
-    for op in (lambda: o * 2.0, lambda: o + o, lambda: -o, lambda: o[:16],
-               lambda: o.abs(), lambda: o ** 2, lambda: o.signal + 1):
-        try:
-            op()
-        except TypeError as e:
-            assert "gather" in str(e), str(e)
-            continue
-        raise AssertionError("algebra on a sharded payload did not raise")
-    for op in (lambda: o.signal.cpu(), lambda: o.conj(), lambda: o("w")):
-        try:
-            op()
-        except (AttributeError, TypeError) as e:
-            assert "gather" in str(e) or "ShardedField" in str(e), str(e)
-            continue
-        raise AssertionError("a tensor method on a sharded payload did not "
-                             "raise")
-    try:
-        OpticalSignal(o.signal, noise=np.zeros(2048))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("a sharded payload took a noise track")
     signals = _sys.modules["opticomlib_tpu_torch.signals"]
     assert not hasattr(signals, "ShardedField")
     return {}
+
+
+def check_fiber_mesh_then_pd(ctx):
+    """A staged device after FIBER(mesh=) takes the whole field: the
+    photodiode's voltage against the port on one process (rank 0 saves it
+    for the test module's JAX reference)."""
+    from opticomlib_tpu_torch.devices import FIBER, PD
+    from opticomlib_tpu_torch.signals import OpticalSignal
+    gv = _gv16(2**10)
+    x = OpticalSignal(make_input(FIBER_INPUT))
+    fib = FIBER(x, mesh=ctx["mesh"], **FIBER_KW)
+    v = PD(fib, **PD_KW).to_numpy()
+    if ctx["rank"] == 0:
+        np.save(os.path.join(ctx["out"], "fiber_mesh_then_pd.npy"), v)
+    want = PD(FIBER(x, **FIBER_KW), **PD_KW).to_numpy()
+    p_mesh, p_one = fib.power(), FIBER(x, **FIBER_KW).power()
+    gv.default()
+    assert abs(p_mesh - p_one) <= 1e-5 * p_one, (p_mesh, p_one)
+    return {"err": _peak_close(v, want, 5e-4)}
 
 
 def check_fiber_mesh_new_methods(ctx):
@@ -534,6 +549,7 @@ CHECKS_W4 = {
     "fiber_mesh_new_methods": check_fiber_mesh_new_methods,
     "foreign_device_rejected": check_foreign_device_rejected,
     "sharded_payload_no_algebra": check_sharded_payload_no_algebra,
+    "fiber_mesh_then_pd": check_fiber_mesh_then_pd,
     "plan_cache": check_plan_cache,
     "ckpt_resume_reference": check_ckpt_resume_reference,
     "ckpt_resume_o4": check_ckpt_resume_o4,
@@ -551,7 +567,70 @@ def check_mesh_2x2(ctx):
     return {}
 
 
-CHECKS_W2X2 = {"mesh_2x2": check_mesh_2x2}
+def check_named_axes(ctx):
+    """A mesh named ('ch', 't') has the groups of ('wdm', 'time') and gives
+    the same field; 1-D meshes have their one axis."""
+    import torch
+    from opticomlib_tpu_torch.parallel import ssfm_sharded
+    from opticomlib_tpu_torch.parallel.fiber import make_mesh
+    mesh = ctx["mesh"]
+    named = make_mesh(np.arange(4).reshape(2, 2), ("ch", "t"))
+    assert named.shape == {"ch": 2, "t": 2}
+    assert named.axis("t").ranks == mesh.axis("time").ranks
+    assert named.axis("ch").ranks == mesh.axis("wdm").ranks
+    _, spec, kw = FIELD_CASES["adaptive_wdm"]
+    A = make_input(spec)
+    a = ssfm_sharded(A, mesh, fs=FS, **kw)
+    b = ssfm_sharded(A, named, fs=FS, time_axis="t", wdm_axis="ch", **kw)
+    assert b.n_steps == a.n_steps and torch.equal(a.local, b.local)
+    assert np.array_equal(np.asarray(a), np.asarray(b))
+    line = make_mesh(range(4), ("time",))
+    assert line.shape == {"time": 4} and line.axis("time").index == ctx["rank"]
+    chans = make_mesh(range(4), ("wdm",))
+    assert chans.axis("wdm").ranks == (0, 1, 2, 3)
+    for call in (lambda: chans.axis("time"),
+                 lambda: make_mesh(np.arange(4)[::-1].copy(), ("time",)),
+                 lambda: make_mesh(np.arange(4).reshape(2, 2), ("t", "t"))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("no ValueError")
+    # a 1-D field on the 1-D 'time' mesh: the (1, 4) mesh's propagation
+    x = bandlimited(2**13, 9, 0.2)
+    c = ssfm_sharded(x, line, fs=FS, length=5.0, alpha=0.2, beta_2=-20,
+                     gamma=1.3, h=0.5)
+    ref, _ = _unsharded(x, dict(length=5.0, alpha=0.2, beta_2=-20,
+                                gamma=1.3, h=0.5))
+    return {"err_line": _peak_close(np.asarray(c), ref, 5e-4)}
+
+
+def check_mesh_collectives(ctx):
+    """all_reduce, all_gather and gather_rows over a named axis and over the
+    whole mesh (ranks [[0, 1], [2, 3]])."""
+    import torch
+    mesh, r = ctx["mesh"], ctx["rank"]
+    x = torch.tensor([float(r)])
+    row, col = mesh.axis("time").ranks, mesh.axis("wdm").ranks
+    assert mesh.all_reduce(x, "sum", "time").item() == sum(row)
+    assert mesh.all_reduce(x, "max", "wdm").item() == max(col)
+    assert mesh.all_reduce(x, "min", "wdm").item() == min(col)
+    assert mesh.all_reduce(x, "mean").item() == 1.5
+    assert x.item() == r                                  # not in place
+    z = torch.tensor([complex(r, -r)], dtype=torch.complex64)
+    assert mesh.all_reduce(z, "sum").item() == complex(6, -6)
+    flag = torch.tensor([r != 3])
+    assert mesh.all_reduce(flag, "min").item() is False
+    assert mesh.all_gather(x, "time").reshape(-1).tolist() == list(row)
+    assert mesh.all_gather(z).reshape(-1).tolist() == [
+        complex(k, -k) for k in range(4)]
+    rows = mesh.gather_rows(torch.tensor([[r, r], [r, -r]]), "wdm")
+    assert rows.tolist() == [[k, s * k] for k in col for s in (1, -1)]
+    return {}
+
+
+CHECKS_W2X2 = {"mesh_2x2": check_mesh_2x2, "named_axes": check_named_axes,
+               "mesh_collectives": check_mesh_collectives}
 
 
 def run_field_case(ctx, name):

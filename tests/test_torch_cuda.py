@@ -515,6 +515,87 @@ def test_fiber_mesh_on_card(cuda_device, nccl_mesh):
     gv.default()
 
 
+_SHARDED_STAGES = {
+    "adaptive": (link.FiberSpec(length=50.0, alpha=0.2, beta_2=-21.0,
+                                gamma=1.3),),
+    "o4_dbp_adc": (link.FiberSpec(length=80.0, alpha=0.2, beta_2=-21.0,
+                                  gamma=1.3, method="o4", h=20.0),
+                   link.EDFASpec(G=16),
+                   link.DBPSpec(length=80.0, alpha=0.2, beta_2=-21.0,
+                                gamma=1.3, method="o4", h=20.0,
+                                undo_gain_dB=16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SHARDED_STAGES))
+def test_sharded_link_on_card(cuda_device, nccl_mesh, name):
+    """build_link(mesh=) at world size 1 over NCCL, 2^16 bits x 16, against
+    the unsharded link on the card: v within 2e-5 of the peak, equal steps;
+    the kicks, products, histograms (and the ADC) through the kernels."""
+    adc = name == "o4_dbp_adc"
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=10.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        include_thermal=False, include_shot=False,
+        adc_bits=8 if adc else None, stages=_SHARDED_STAGES[name])
+    params = SimParams.create(sps=16, R=10e9, _warn=False)
+    n_bits = 2**16
+    bits = prbs(15, length=n_bits)[0].astype(np.float32)
+    prog = link.build_link(spec, n_bits, params, mesh=nccl_mesh)
+    kernels.reset_launches()
+    out = prog.jitted(bits, [0])
+    d = prog.dsp(bits=bits, seed=0)
+    ref = link.build_link(spec, n_bits, params, device=cuda_device)
+    o0 = ref.jitted(torch.as_tensor(bits, device=cuda_device), 0)
+    assert [int(s[0]) for s in out[2]] == list(o0[2])
+    v1 = out[0].local[0]
+    assert v1.device.type == "cuda"
+    v0 = o0[0]
+    if adc:  # the histogram range against the exact-sort range
+        lsb = float(v0.max() - v0.min()) / 255
+        assert float((v1 - v0).abs().max()) <= 1.5 * lsb
+        assert kernels.LAUNCHES["adc_quantize"] >= 2
+    else:
+        assert float((v1 - v0).abs().max()) <= 2e-5 * float(v0.abs().max())
+    assert d.n_errors == ref.dsp(bits=bits, seed=0).n_errors
+    for k in ("nl_halfstep", "cmul", "histogram2d"):
+        assert kernels.LAUNCHES[k] > 0, kernels.LAUNCHES
+
+
+def test_sweep_over_card_mesh(cuda_device, nccl_mesh):
+    """LinkProgram.dsp_wdm(mesh=) over a 1-D 'wdm' mesh of one card equals
+    the plain sweep."""
+    from opticomlib_tpu_torch.parallel.fiber import make_mesh
+    spec = link.LinkSpec(Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=-18.0,
+                         pulse_shape="gaussian", loss_dB=3, ER_dB=26,
+                         pd_BW=7.5e9, include_shot=False)
+    prog = link.build_link(spec, 2**12, SimParams.create(
+        sps=16, R=10e9, _warn=False), device=cuda_device)
+    bits = prbs(15, length=4 * 2**12)[0].reshape(4, -1)
+    plain = prog.dsp_wdm(4, bits=bits, seed=3)
+    meshed = prog.dsp_wdm(4, bits=bits, seed=3,
+                          mesh=make_mesh([0], ("wdm",)))
+    np.testing.assert_array_equal(meshed.n_errors, plain.n_errors)
+    np.testing.assert_array_equal(meshed.threshold, plain.threshold)
+
+
+def test_pd_after_fiber_mesh_on_card(cuda_device, nccl_mesh):
+    """A staged device after FIBER(mesh=) takes the whole field on the
+    card."""
+    from opticomlib_tpu_torch.signals import OpticalSignal
+    gv.default()
+    gv(sps=16, R=10e9, N=2**16)
+    x = OpticalSignal(_launch_field(2**20, 9, cuda_device))
+    kw = dict(length=10, alpha=0.2, beta_2=-20.0, gamma=1.3, phi_max=0.05)
+    got = devices.PD(devices.FIBER(x, mesh=nccl_mesh, **kw), BW=7.5e9,
+                     include_noise="none")
+    want = devices.PD(devices.FIBER(x, **kw), BW=7.5e9, include_noise="none")
+    assert got.device.type == "cuda"
+    a, b = got.to_numpy(), want.to_numpy()
+    assert np.max(np.abs(a - b)) <= 5e-4 * np.max(np.abs(b))
+    gv.default()
+
+
 def test_profiling_trace_on_card(cuda_device, tmp_path):
     """The Chrome trace of a block holds the named region and the kernels'
     names; DeviceTimer agrees with CUDA events."""

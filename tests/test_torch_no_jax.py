@@ -11,6 +11,7 @@ import torch
 torch.set_num_threads(2)
 
 _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
+            "opticomlib_tpu_torch.link_sharded",
             "opticomlib_tpu_torch.convert", "opticomlib_tpu_torch.eyediag",
             "opticomlib_tpu_torch.params", "opticomlib_tpu_torch.ops.kernels",
             "opticomlib_tpu_torch.ops._build",

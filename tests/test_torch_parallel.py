@@ -49,13 +49,14 @@ CHILD = os.path.join(os.path.dirname(__file__), "_torch_dist_child.py")
 TIME_LIMIT = 300  # seconds a launch may take before its children are killed
 
 
-def _run_ranks(world, out_dir, suite):
-    """Spawn ``world`` ranks of ``suite``; returns (exit codes, outputs)."""
+def _run_ranks(world, out_dir, suite, child=CHILD):
+    """Spawn ``world`` ranks of ``suite`` of the rank script ``child``;
+    returns (exit codes, outputs)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     rendezvous = os.path.join(out_dir, f"rendezvous_{suite}")
     procs = [subprocess.Popen(
-        [sys.executable, CHILD, str(r), str(world), rendezvous, out_dir,
+        [sys.executable, child, str(r), str(world), rendezvous, out_dir,
          suite], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
     outs = []
@@ -205,6 +206,26 @@ def test_fiber_mesh_drop_in_matches_jax(w4):
     assert np.max(np.abs(got - want)) <= 5e-4 * np.max(np.abs(want))
 
 
+def test_fiber_mesh_then_pd_matches_jax(w4):
+    """PD(FIBER(x, mesh=)) on 4 ranks against the JAX staged call on a
+    4-device CPU mesh, where the photodiode takes the fiber's global
+    array."""
+    from opticomlib_tpu import gv
+    from opticomlib_tpu.devices import FIBER, PD
+    from opticomlib_tpu.signals import OpticalSignal
+
+    _all_ranks_ok(w4, "fiber_mesh_then_pd")
+    got = np.load(os.path.join(w4["out"], "fiber_mesh_then_pd.npy"))
+    mesh = jfiber.make_link_mesh(n_wdm=1, n_time=4, devices=jax.devices()[:4])
+    gv.default()
+    gv(sps=16, R=10e9, N=2**10)
+    want = PD(FIBER(OpticalSignal(child.make_input(child.FIBER_INPUT)),
+                    mesh=mesh, **child.FIBER_KW), **child.PD_KW).to_numpy()
+    gv.default()
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 5e-4 * np.max(np.abs(want))
+
+
 def test_sharded_state_crosses_to_jax(w4):
     """``convert.sharded_to_jax`` on the ranks gives what the JAX package
     rebuilds a global array from (the way there, ``sharded_from_jax`` on its
@@ -257,12 +278,23 @@ def test_pad_block_operator_equals_jax():
 
 @pytest.mark.parametrize("q", [0, 3])
 def test_strided_grids_equal_jax(q):
+    """The bins, the angular frequencies and the dispersion phase of a
+    rank's strided spectrum slice, bit for bit: float32 in the JAX
+    functions' operations and order (the phase as the JAX sharded solvers
+    evaluate it, ``beta_2/2*w**2 + beta_3/6*w**3`` in rad/ps)."""
     P_, B, fs = 4, 256, 160e9
     np.testing.assert_array_equal(tdfft.strided_k_local(q, P_, B),
                                   np.asarray(jdfft.strided_k_local(q, P_, B)))
-    np.testing.assert_allclose(
-        tdfft.strided_w_grid(q, P_, B, fs),
-        np.asarray(jdfft.strided_w_grid(q, P_, B, fs)), rtol=1e-6)
+    w = tdfft.strided_w_grid(q, P_, B, fs)
+    assert w.dtype == torch.float32
+    np.testing.assert_array_equal(
+        w.numpy(), np.asarray(jdfft.strided_w_grid(q, P_, B, fs)))
+    for b2, b3 in ((-21.0, 0.0), (-21.0, 0.13), (21.0, -0.13)):
+        wj = jdfft.strided_w_grid(q, P_, B, fs) * 1e-12
+        want = (b2 / 2 * wj**2 + b3 / 6 * wj**3).astype(jnp.float32)
+        np.testing.assert_array_equal(
+            tdfft.strided_dispersion_phase(q, P_, B, fs, b2, b3).numpy(),
+            np.asarray(want))
 
 
 def test_resolve_shard_method_rules(monkeypatch):

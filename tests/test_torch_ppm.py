@@ -313,9 +313,10 @@ def test_dsp_ppm_reproducible_and_keyed_by_seed():
     d1 = tprog.dsp_ppm(M, decision="hard", bits=bits, seed=9)
     d2 = tprog.dsp_ppm(M, decision="hard", bits=bits, seed=9)
     assert d1.n_errors == d2.n_errors and d1.threshold == d2.threshold
-    u9 = tprog._hdd_uniform(9, N_SYM, M, None)
-    assert torch.equal(u9, tprog._hdd_uniform(9, N_SYM, M, None))
-    assert not torch.equal(u9, tprog._hdd_uniform(10, N_SYM, M, None))
+    u9 = tlink._hdd_uniform(9, N_SYM, M, None, tprog.device)
+    assert torch.equal(u9, tlink._hdd_uniform(9, N_SYM, M, None, "cpu"))
+    assert not torch.equal(u9, tlink._hdd_uniform(10, N_SYM, M, None,
+                                                  "cpu"))
     assert u9.shape == (N_SYM, M) and 0 <= float(u9.min()) \
         and float(u9.max()) < 1
 

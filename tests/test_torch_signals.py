@@ -364,6 +364,37 @@ def test_keyed_laser_bit_equal_across_repeats_and_threads(threads):
         torch.set_num_threads(before)
 
 
+_FIRST_CALL = """
+import sys, torch
+sys.path.insert(0, {root!r})
+import opticomlib_tpu_torch
+torch.set_num_threads(8)
+x = 1 + torch.randn(65536, generator=torch.Generator().manual_seed(7)) * 0.04
+first = torch.sqrt(x)
+torch.set_num_threads(1)
+print(torch.equal(first, torch.sqrt(x)))
+"""
+
+
+def test_first_parallel_vector_math_call_after_import_is_exact():
+    """The first vector-math call of a process (torch's CPU sqrt, exp...)
+    split over several threads computes one thread's share on a
+    low-accuracy path about once in thirty processes under load, unless a
+    call on one thread came first (the package's import makes one).  Eight
+    fresh processes at once, each a first parallel sqrt against a one-thread
+    sqrt: without that call, about one run of this test in five sees a
+    difference."""
+    import subprocess
+    import sys
+    root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               _FIRST_CALL.format(root=root)],
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(8)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert outs == ["True"] * 8, outs
+
+
 def test_keyed_devices_reproducible():
     gv(sps=16, R=10e9, N=2**8)
     a = LASER(5, lw=1e6, rin=-140, key=7)

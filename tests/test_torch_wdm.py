@@ -202,5 +202,8 @@ def test_validation(call):
     lambda p: p.dsp_wdm_ppm(2, M=M, mesh=object()),
 ])
 def test_mesh_is_not_ported(call):
-    with pytest.raises(NotImplementedError, match="parallel"):
+    """mesh= is ported (tests/test_torch_link_sharded.py runs the sweeps
+    over gloo ranks); what the sweeps refuse is a mesh that is not a mesh
+    of ranks."""
+    with pytest.raises(TypeError, match="make_mesh"):
         call(_tprog())
