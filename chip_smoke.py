@@ -123,7 +123,20 @@ It checks them in phases, one line each; any failure exits non-zero:
     ``LinkProgram.dsp_wdm(16, mesh=)`` over a 1-D 'wdm' mesh equal to phase
     13's sweep; ``PD(FIBER(x, mesh=))`` at 2^24 against ``PD(FIBER(x))``;
     each with its first and steady wall time beside the unsharded call's,
-    and its launches.
+    and its launches;
+19. the span-pipelined link at world size 1 over NCCL, ``make_span_mesh(1)``
+    (S = 1: the 40 segments on the one rank, every move a local copy; 4
+    channels, not 16, to keep the script within its time): config 4
+    pipelined on the card against the sequential ``LinkProgram`` on the CPU
+    on the same numpy draws, 2 x 2^18 samples, the voltage before the ADC to
+    relative L2 1e-3; config 4 noiseless ``dsp_wdm(2)`` at 2 x 2^20 against
+    ``LinkProgram.dsp_wdm`` (BER equal, thresholds and ``mu1`` rtol 1e-4);
+    ``build_link(span_mesh=).dsp_wdm(4)`` at 4 x 2^24 (first and two steady
+    calls, peak memory, launches; every channel held to config 4's JAX pins;
+    the same seed again equal, another seed moving the thresholds);
+    ``span_pipeline`` of 4 microbatches of 2^24 samples through config 2's
+    50 km adaptive fiber with ASE on injected draws, within 5e-4 of the peak
+    of the span applied to each by hand.
 
 The line before the last is a JSON object with, for each kernel, its
 launches (summed over the counted runs of the paths; per path under
@@ -370,6 +383,22 @@ def hold_to_pin(d, pin, phase: int, slots=(4096, 4096), rel_floor=0.0,
         tol = max(5 * pin[s_k] / np.sqrt(n_k), rel_floor * abs(pin[k]))
         check(abs(getattr(e, k) - pin[k]) <= tol, phase,
               f"{k} {getattr(e, k)} vs pinned {pin[k]} +- {tol:.2g}")
+
+
+def threshold_spread(pin, slots=(4096, 4096)) -> float:
+    """Standard deviation of the difference between two OOK thresholds of
+    the same link on independent noise: the threshold is near the point
+    where both levels' tails meet, r = (mu1 s0 + mu0 s1) / (s0 + s1), and
+    its standard error follows from those of the level means (s / sqrt(N))
+    and spreads (s / sqrt(2 N)) that ``hold_to_pin`` uses."""
+    mu0, mu1, s0, s1 = (pin[k] for k in ("mu0", "mu1", "s0", "s1"))
+    r = (mu1 * s0 + mu0 * s1) / (s0 + s1)
+    n0, n1 = slots
+    var = ((s0 / (s0 + s1)) ** 2 * s1 ** 2 / n1
+           + (s1 / (s0 + s1)) ** 2 * s0 ** 2 / n0
+           + ((mu1 - r) / (s0 + s1)) ** 2 * s0 ** 2 / (2 * n0)
+           + ((r - mu0) / (s0 + s1)) ** 2 * s1 ** 2 / (2 * n1))
+    return float(np.sqrt(2 * var))
 
 
 def config3_spec(link):
@@ -1823,9 +1852,150 @@ def main() -> None:
     print(f"phase 18 PD(FIBER(x, mesh=mesh)) (2^24 samples): ok err/peak "
           f"{e18:.2g}; "
           + walls_line(out, (t_ref, [])), flush=True)
+    del x, out, ref
+
+    # ---- phase 19: the span-pipelined link at world size 1 over NCCL ----
+    # Cut to size: one card is one rank, so S = 1 (the JAX package's runs
+    # take 8 devices): the 40 segments of config 4 run on the one rank and
+    # every point-to-point move of the schedule is a local copy; 4 channels
+    # at full width, not 16, to keep the script within its time.
+    from opticomlib_tpu_torch.parallel import make_span_mesh, span_pipeline
+
+    t19 = time.perf_counter()
+    smesh = make_span_mesh(1)
+    check(smesh.device.type == "cuda" and smesh.shape == {"span": 1}, 19,
+          f"{smesh!r}")
+    # 1. the card's pipelined chain against the CPU's sequential LinkProgram
+    # on the same numpy draws, 2 channels at 2^18 samples: the voltage
+    # before the ADC (eye windows and slot samples)
+    nb = 2**14
+    n = nb * SPS4
+    rng = np.random.default_rng(19)
+    draws = [{"phase": rng.standard_normal(n, dtype=np.float32),
+              "rin": rng.standard_normal(n, dtype=np.float32),
+              "ase": [rng.standard_normal((4, n), dtype=np.float32)
+                      for _ in range(20)],
+              "thermal": rng.standard_normal(n, dtype=np.float32),
+              "shot": rng.standard_normal(n, dtype=np.float32)}
+             for _ in range(2)]
+    bits = prbs(15, length=2 * nb)[0].reshape(2, nb)
+    spec19 = dataclasses.replace(spec4, adc_bits=None)
+    t0 = time.perf_counter()
+    pr = link.build_link(spec19, nb, params4, span_mesh=smesh)
+    wins, slots, ok = pr._chain(bits, 7, draws, 8192, pr._channels(2))
+    v_g = torch.cat([wins, slots], 1).cpu().numpy()
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = link.build_link(spec19, nb, params4, device="cpu")
+    v_c, ok_c = [], []
+    for c in range(2):
+        v, vs, _, ok1 = seq(torch.as_tensor(bits[c]), seed=7 + c,
+                            noise=draws[c])
+        v_c.append(torch.cat([v[:wins.shape[1]], vs]).numpy())
+        ok_c.append(bool(ok1))
+    v_c = np.stack(v_c)
+    t_c = time.perf_counter() - t0
+    rel = float(np.linalg.norm(v_g - v_c) / np.linalg.norm(v_c))
+    check(rel <= 1e-3 and bool(ok.all()) and all(ok_c), 19,
+          f"card vs CPU: v rel L2 {rel:.3g} > 1e-3 (rin_ok {ok.tolist()}, "
+          f"{ok_c})")
+    print(f"phase 19 pipelined config 4 on the card vs LinkProgram on the CPU "
+          f"(2 x 2^18 samples, S = 1): ok v rel L2 {rel:.3g} before the ADC; "
+          f"card {t_g:.1f} s, CPU {t_c:.1f} s", flush=True)
+    del draws, pr, seq, wins, slots, v_g, v_c, v, vs
+
+    # 2. against the port's sequential link: config 4 noiseless, 2 x 2^20
+    nb = SMALL_BITS4
+    pr = link.build_link(quiet4, nb, params4, span_mesh=smesh)
+    sw_p = pr.dsp_wdm(2, seed=0)
+    sw_s = link.build_link(quiet4, nb, params4, device=dev).dsp_wdm(
+        2, bits=sw_p.tx, seed=0)
+    d_th = float(np.max(np.abs(sw_p.threshold / sw_s.threshold - 1)))
+    d_mu = float(np.max(np.abs(sw_p.mu1 / sw_s.mu1 - 1)))
+    check(np.array_equal(sw_p.ber, sw_s.ber) and d_th <= 1e-4
+          and d_mu <= 1e-4, 19,
+          f"pipelined vs sequential: BER {sw_p.ber} vs {sw_s.ber}, "
+          f"thresholds rel {d_th:.3g}, mu1 rel {d_mu:.3g}")
+    print(f"phase 19 pipelined vs LinkProgram.dsp_wdm, config 4 noiseless "
+          f"(2 x 2^20 samples): ok BER {sw_p.ber.tolist()} equal, "
+          f"thresholds rel {d_th:.2g}, mu1 rel {d_mu:.2g}", flush=True)
+    del pr, sw_p, sw_s
+
+    # 3. full width: config 4 at 2^24 samples a channel, 4 channels
+    pr = link.build_link(spec4, N_BITS4, params4, span_mesh=smesh)
+    out = timed_call(torch, kernels, lambda: pr.dsp_wdm(
+        4, seed=3, sps_resamp=128), steady=2)
+    sw, launches19 = out[0], out[1]
+    check(launches19["nl_halfstep"] >= 4 * 960 and launches19["cmul"] >= 4 * 480
+          and launches19["histogram2d"] >= 1
+          and launches19["adc_quantize"] >= 4, 19, f"launches {launches19}")
+    check(sw.rin_ok.all(), 19, "a RIN draw was clamped")
+    print(f"phase 19 dsp_wdm(4) channels: thresholds "
+          f"{sw.threshold.tolist()}, mu1 {sw.mu1.tolist()}", flush=True)
+    # each channel runs on its own noise draws, not the pin's: its
+    # threshold is held within 5 standard deviations of the difference of
+    # two thresholds (1.2e-3 here; 2 % of the pin is 2.1 of them), as
+    # hold_to_pin holds the levels within 5 standard errors
+    slack = max(0.0, 5 * threshold_spread(PINNED4)
+                - 0.02 * PINNED4["threshold"])
+    for c in range(4):
+        hold_to_pin(SimpleNamespace(
+            ber=float(sw.ber[c]), threshold=float(sw.threshold[c]),
+            eye=SimpleNamespace(**{k: float(getattr(sw, k)[c])
+                                   for k in ("mu0", "mu1", "s0", "s1")})),
+            PINNED4, 19, threshold_slack=slack)
+    again = pr.dsp_wdm(4, seed=3, sps_resamp=128)
+    other = pr.dsp_wdm(4, bits=sw.tx, seed=4, sps_resamp=128)
+    check(all(np.array_equal(getattr(again, k), getattr(sw, k)) for k in
+              ("threshold", "n_errors", "mu0", "mu1", "s0", "s1")), 19,
+          "the same seed gave other scalars")
+    check(not np.array_equal(other.threshold, sw.threshold), 19,
+          "another seed left the thresholds where they were")
+    print(f"phase 19 pipelined config 4 dsp_wdm(4) (4 x 2^24 samples, 40 "
+          f"segments on one rank): ok BER {sw.ber.tolist()}, thresholds "
+          f"{sw.threshold.tolist()} (JAX {PINNED4['threshold']}); wall first "
+          f"{out[2]:.3f} s, then {', '.join(f'{x:.3f}' for x in out[3])} s "
+          f"(unsharded dsp a channel {unsharded_walls['config4'][0]:.3f}, "
+          f"then {', '.join(f'{x:.3f}' for x in unsharded_walls['config4'][1])}"
+          f" s); peak memory {out[4] / 2**30:.2f} GiB; launches {launches19}",
+          flush=True)
+    del pr, sw, again, other, out
+
+    # 4. span_pipeline at 2^24: 4 microbatches through one span of config
+    # 2's fiber, adaptive, with ASE on injected draws
+    rng = np.random.default_rng(190)
+    batch19 = torch.stack([torch.roll(A0, 4099 * k) for k in range(4)])
+    draws = [[rng.standard_normal((2, n_full), dtype=np.float32)]
+             for n_full in [A0.numel()] * 4]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sp = span_pipeline(batch19, smesh, params.fs, 50.0, alpha=0.2,
+                       beta_2=-21.0, gamma=1.3, h=None, phi_max=0.01, NF=5.0,
+                       noise=draws)
+    torch.cuda.synchronize()
+    t_sp = time.perf_counter() - t0
+    launches_sp = dict(kernels.LAUNCHES)
+    sigma = noise_ops.ase_sigma(10.0, 5.0, 299792458.0 / 1550e-9, params.fs)
+    errs = []
+    for k in range(4):
+        y, _ = ssfm.ssfm_propagate(batch19[k], w, 50.0, alpha=0.2,
+                                   beta_2=-21.0, gamma=1.3, phi_max=0.01)
+        d_k = torch.as_tensor(draws[k][0], device=dev) * float(
+            np.float32(sigma))
+        y = y * float(np.float32(10.0 ** 0.5)) + torch.complex(d_k[0], d_k[1])
+        errs.append(float((sp.local[k] - y).abs().max() / y.abs().max()))
+    check(max(errs) <= 5e-4 and launches_sp["nl_halfstep"] > 0
+          and launches_sp["cmul"] > 0, 19,
+          f"span_pipeline: max abs err / peak {max(errs):.3g} > 5e-4, or "
+          f"launches {launches_sp}")
+    print(f"phase 19 span_pipeline (4 x 2^24 samples, 50 km adaptive + "
+          f"ASE): ok err/peak {max(errs):.2g} against the spans one by one; "
+          f"{t_sp:.3f} s; launches {launches_sp}; phase 19 "
+          f"{time.perf_counter() - t19:.1f} s", flush=True)
+    del sp, batch19, draws, y, d_k
     dist.destroy_process_group()
     rendezvous.cleanup()
-    del x, out, ref, A0
+    del A0
 
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,
@@ -1833,7 +2003,8 @@ def main() -> None:
                "config5_defined": launches5d, "wdm_ppm": launches_wp,
                "eye": launches_eye, "resumable": launches_res,
                "span_chain": launches_chain,
-               **{"sharded_" + k: v for k, v in launches_sharded.items()}}
+               **{"sharded_" + k: v for k, v in launches_sharded.items()},
+               "pipelined_config4": launches19, "span_pipeline": launches_sp}
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},

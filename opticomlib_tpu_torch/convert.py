@@ -10,7 +10,9 @@ real arrays (``phi_w_*``, ``phi_dm_*``, ``H2_bpf_*``, ``H2_pd``,
 number the spectral arrays with one counter in stage order), so
 ``prog.load_consts(consts_from_jax(jax_prog.consts))`` runs the port on the
 JAX program's own constants; with ``mesh=`` the same for the sharded
-programs, each rank taking its block.
+programs, each rank taking its block.  The pipelined program's constants
+are its TX twin's, as in the JAX package:
+``pipelined.load_consts(consts_from_jax(jax_pipelined.consts))``.
 
 :func:`signal_from_jax` and :func:`gv_from_jax` carry the staged API's
 state across: a JAX ``BinarySequence`` / ``ElectricalSignal`` /

@@ -32,7 +32,8 @@ operations are the JAX program's; what differs:
   rank of the mesh runs its block of the channels and the per-channel
   results are gathered (``torch.distributed``).
 * ``build_link(mesh=...)`` returns the sharded program of
-  :mod:`opticomlib_tpu_torch.link_sharded`.
+  :mod:`opticomlib_tpu_torch.link_sharded`, ``build_link(span_mesh=...)``
+  the span-pipelined one of :mod:`opticomlib_tpu_torch.link_pipeline`.
 
 Typical use::
 
@@ -65,7 +66,7 @@ from .models.ppm import (PPM_ENCODER, hdd_positions, positions_to_bits,
                          sdd_positions)
 from .ops.eyeana import (_shortest_int_masked, eye_metrics, eye_window,
                          linspace)
-from .ops.noise import ase_sigma, gaussian, wiener_phase
+from .ops.noise import as_draw, ase_sigma, gaussian, wiener_phase
 from .ops.prbs import prbs
 from .params import SimParams, check_device, current_device, resolve_params
 from .signals import BinarySequence, ElectricalSignal
@@ -99,6 +100,17 @@ def _adc_quantize(v: torch.Tensor, bits: int) -> torch.Tensor:
     lo, hi = _shortest_int_masked(v, torch.ones_like(v, dtype=torch.bool),
                                   99.99)
     return kernels.adc_quantize_link(v, lo, hi, bits)
+
+
+def _injected(noise: Optional[dict], device):
+    """``draw(name, i=None)``: the injected unit draws ``noise[name]`` (its
+    ``i``-th array for a list) as float32 on ``device``; ``None`` without
+    ``noise``."""
+    def draw(name, i=None):
+        if noise is None:
+            return None
+        return as_draw(noise[name] if i is None else noise[name][i], device)
+    return draw
 
 
 # ---------------------------------------------------------------------------
@@ -687,17 +699,73 @@ class LinkProgram(torch.nn.Module):
     def forward(self, bits: torch.Tensor, seed: int = 0,
                 noise: Optional[dict] = None):
         spec, n, sps = self.spec, self.n, self.params.sps
-        dev = self.device
-        gen = torch.Generator(device=dev)
+        gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
+        draw = _injected(noise, self.device)
+        field, rin_ok = self._transmit(bits, gen, draw)
 
-        def draw(name, i=None):
-            if noise is None:
-                return None
-            d = noise[name] if i is None else noise[name][i]
-            if not isinstance(d, torch.Tensor):
-                d = torch.from_numpy(np.array(d, dtype=np.float32))
-            return d.to(device=dev, dtype=torch.float32)
+        # --- channel stages ---
+        i_ase = itertools.count()
+
+        def ase(sigma):  # the next noisy EDFA's (4, n) draw
+            return gaussian((4, n), sigma, gen, draw("ase", next(i_ase)))
+
+        neg_phi = {}  # -phi_w of the DBP stages, built once per call
+        n_steps = []
+        for st, cc in zip(spec.stages, self.plan):
+            if cc["kind"] != "repeat":
+                field = self._stage(field, st, cc, ase, neg_phi, n_steps)
+                continue
+            if cc["needs_ase"]:
+                field = _promote_2pol(field)
+            for _ in range(cc["n"]):
+                for s_st, s_cc in zip(st.stages, cc["sub"]):
+                    field = self._stage(field, s_st, s_cc, ase, neg_phi,
+                                        n_steps)
+
+        v = self._receive(field, lambda name, sigma: gaussian(
+            (n,), sigma, gen, draw(name)))
+        out = (v, v[self.instant::sps], tuple(n_steps))
+        if self.return_field:
+            out = out + (field,)
+        return out + (rin_ok,)
+
+    def _receive(self, field: torch.Tensor, normal) -> torch.Tensor:
+        """Photodiode -> electrical LPF (zero-phase ``|H|^2``) -> the
+        optional ADC: the receiver's voltage ``(n,)`` float32 of a ``(n,)``
+        or ``(2, n)`` field.  ``normal(name, sigma)`` gives ``sigma *
+        N(0, 1)`` for ``"thermal"`` and ``"shot"``, in that order."""
+        spec = self.spec
+
+        # --- PD (reference devices.py:1378-1555) ---
+        P = field.real ** 2 + field.imag ** 2
+        if field.ndim == 2:
+            P = P.sum(dim=0)
+        i_ph = P * float(f32(spec.pd_r))
+        i = i_ph
+        if spec.include_thermal or spec.include_shot:
+            # the reference folds i_dark into the noise track
+            i = i + float(f32(spec.i_dark))
+        if spec.include_thermal:
+            i = i + normal("thermal", self.S_T ** 0.5)
+        if spec.include_shot:
+            S_N = ((i_ph.mean() + float(f32(spec.i_dark)))
+                   * float(2 * f32(e)) * float(f32(self.params.fs / 2)))
+            i = i + normal("shot", torch.sqrt(S_N))
+
+        # --- electrical LPF (zero-phase |H|^2), ADC ---
+        v = filters.apply_freq_response(i * float(f32(spec.pd_R_load)),
+                                        self.H2_pd).contiguous()
+        if spec.adc_bits is not None:
+            v = _adc_quantize(v, int(spec.adc_bits))
+        return v
+
+    def _transmit(self, bits: torch.Tensor, gen: torch.Generator, draw):
+        """DAC -> laser -> MZM/PM: the launch field ``(n,)`` complex64 and
+        the ``rin_ok`` flag, the laser's draws taken from ``gen`` (phase,
+        then RIN) or ``draw(name)``."""
+        spec, n, sps = self.spec, self.n, self.params.sps
+        dev = self.device
 
         # --- DAC: zero-stuff upsample + circular pulse shaping ---
         xu = pulses.upsample_zero_stuff(bits.to(torch.float32), sps)
@@ -739,52 +807,7 @@ class LinkProgram(torch.nn.Module):
             h_t = torch.complex(torch.cos(g), torch.sin(g)
                                 * float(f32(self.eta_half)))
             h_t = h_t * float(f32(self.loss_amp))
-        field = h_t * P0_amp if E is None else E * h_t
-
-        # --- channel stages ---
-        i_ase = itertools.count()
-
-        def ase(sigma):  # the next noisy EDFA's (4, n) draw
-            return gaussian((4, n), sigma, gen, draw("ase", next(i_ase)))
-
-        neg_phi = {}  # -phi_w of the DBP stages, built once per call
-        n_steps = []
-        for st, cc in zip(spec.stages, self.plan):
-            if cc["kind"] != "repeat":
-                field = self._stage(field, st, cc, ase, neg_phi, n_steps)
-                continue
-            if cc["needs_ase"]:
-                field = _promote_2pol(field)
-            for _ in range(cc["n"]):
-                for s_st, s_cc in zip(st.stages, cc["sub"]):
-                    field = self._stage(field, s_st, s_cc, ase, neg_phi,
-                                        n_steps)
-
-        # --- PD (reference devices.py:1378-1555) ---
-        P = field.real ** 2 + field.imag ** 2
-        if field.ndim == 2:
-            P = P.sum(dim=0)
-        i_ph = P * float(f32(spec.pd_r))
-        i = i_ph
-        if spec.include_thermal or spec.include_shot:
-            # the reference folds i_dark into the noise track
-            i = i + float(f32(spec.i_dark))
-        if spec.include_thermal:
-            i = i + gaussian((n,), self.S_T ** 0.5, gen, draw("thermal"))
-        if spec.include_shot:
-            S_N = ((i_ph.mean() + float(f32(spec.i_dark)))
-                   * float(2 * f32(e)) * float(f32(self.params.fs / 2)))
-            i = i + gaussian((n,), torch.sqrt(S_N), gen, draw("shot"))
-
-        # --- electrical LPF (zero-phase |H|^2), ADC, slot sampling ---
-        v = filters.apply_freq_response(i * float(f32(spec.pd_R_load)),
-                                        self.H2_pd).contiguous()
-        if spec.adc_bits is not None:
-            v = _adc_quantize(v, int(spec.adc_bits))
-        out = (v, v[self.instant::sps], tuple(n_steps))
-        if self.return_field:
-            out = out + (field,)
-        return out + (rin_ok,)
+        return (h_t * P0_amp if E is None else E * h_t), rin_ok
 
     def _stage(self, f, st, cc, ase, neg_phi, n_steps):
         """Apply one stage other than a repeat: fiber stages append their
@@ -1137,7 +1160,7 @@ def build_link(spec: LinkSpec, n_bits: int,
                params: Optional[SimParams] = None,
                return_field: bool = False, mesh=None,
                time_axis: str = "time", wdm_axis: Optional[str] = "wdm",
-               span_mesh=None, *, device=None):
+               span_mesh=None, span_axis: str = "span", *, device=None):
     """Build the link described by ``spec`` for ``n_bits`` slots at the
     given (default: ``gv``'s current) simulation parameters on ``device``
     (``"cuda"``, ``"cuda:1"``, ``"cpu"``...; default: ``gv``'s device, the
@@ -1152,21 +1175,30 @@ def build_link(spec: LinkSpec, n_bits: int,
     mesh's device): each waveform's samples spread over the time axis
     (exact pencil-FFT spectral operations, adaptive split-step with an
     all-reduce(max) a step), channels over the wdm axis, the receivers'
-    scalars gathered.  ``span_mesh`` (the span-pipelined link) is not ported
-    yet."""
+    scalars gathered.
+
+    ``span_mesh`` (a 1-D mesh of ranks,
+    :func:`~opticomlib_tpu_torch.parallel.make_span_mesh`) builds the
+    **pipelined** fused link instead
+    (:class:`~opticomlib_tpu_torch.link_pipeline.PipelinedLinkProgram`, on
+    the mesh's device): the channel-stage chain (FIBER+EDFA spans, DBP with
+    undo-gain, DM, e.g. config 4's 20 x 80 km chain) is spread over the
+    ranks of ``span_axis`` and a batch of channels streams through it
+    (``dsp_wdm``), TX and RX running on each channel's owner rank."""
     if mesh is not None and span_mesh is not None:
         raise ValueError("pass either mesh= (time/wdm sharding) or "
                          "span_mesh= (span pipelining), not both")
+    for m in (mesh, span_mesh):
+        if m is not None and device is not None and \
+                check_device(device).type != m.device.type:
+            raise ValueError(f"device {device} but the mesh computes on "
+                             f"{m.device}")
     if span_mesh is not None:
-        raise NotImplementedError(
-            "span_mesh= (the span-pipelined link, parallel/pipeline.py and "
-            "link_pipeline.py) is not ported yet: ROADMAP.md Queue 1 item 5")
+        from .link_pipeline import PipelinedLinkProgram
+        return PipelinedLinkProgram(spec, n_bits, resolve_params(params),
+                                    span_mesh, span_axis=span_axis)
     if mesh is not None:
         from .link_sharded import ShardedLinkProgram
-        if device is not None and check_device(device).type != \
-                mesh.device.type:
-            raise ValueError(f"device {device} but the mesh computes on "
-                             f"{mesh.device}")
         return ShardedLinkProgram(spec, n_bits, resolve_params(params), mesh,
                                   time_axis=time_axis, wdm_axis=wdm_axis,
                                   return_field=return_field)

@@ -34,7 +34,7 @@ Design notes (those of the JAX module, and what differs):
   ``torch.Generator`` keyed by (seed + channel, noise stage, time index):
   reproducible on one mesh, a different stream from the unsharded program
   and from JAX's threefry keys.  The laser's Wiener walk is a local float32
-  ``cumsum`` plus the all-gathered sums of the blocks before it.
+  running sum plus the all-gathered sums of the blocks before it.
   ``noise=`` (a list of per-channel dicts of global unit-normal draws, as
   :meth:`LinkProgram.forward` takes them) replaces the draws: each rank
   takes its block, and the program then equals the unsharded one on the
@@ -67,7 +67,8 @@ from .link import (LinkProgram, LinkSpec, _circular_zero_phase_spectrum,
 from .models.ppm import PPM_ENCODER
 from .ops import filters, kernels, pulses
 from .ops.eyeana import eye_window, shortest_int_hist
-from .ops.noise import gaussian
+from .ops.noise import (as_draw, gaussian, keyed_generator,
+                         running_sum)
 from .ops.prbs import prbs
 from .ops.ssfm import (_MAX_STEPS, _lin_factor, ssfm_local_error_inside,
                        ssfm_o4_auto_inside, ssfm_o4_scan_inside,
@@ -96,13 +97,6 @@ def _strided_permute(H: np.ndarray, P_: int) -> np.ndarray:
 def _promote_2pol(f: torch.Tensor) -> torch.Tensor:
     """``(lc, B)`` 1-pol channels as the first rows of ``(lc, 2, B)``."""
     return torch.stack([f, torch.zeros_like(f)], dim=1) if f.ndim == 2 else f
-
-
-def _noise_seed(seed: int, stage: int, q: int) -> int:
-    """The generator seed of one block of draws: (channel seed, noise stage,
-    time index) mixed by NumPy's ``SeedSequence``."""
-    return int(np.random.SeedSequence([int(seed), int(stage), int(q)])
-               .generate_state(1, np.uint64)[0])
 
 
 class ShardedLinkProgram(torch.nn.Module):
@@ -252,16 +246,12 @@ class ShardedLinkProgram(torch.nn.Module):
         for c, seed in enumerate(seeds):
             s = sigma[c] if isinstance(sigma, torch.Tensor) else sigma
             if noise is None:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(_noise_seed(seed, stage, q))
-                out.append(gaussian(shape, s, gen))
+                out.append(gaussian(shape, s, keyed_generator(
+                    self.device, seed, stage, q)))
                 continue
-            d = noise[c][name] if i is None else noise[c][name][i]
-            if not isinstance(d, torch.Tensor):
-                d = torch.from_numpy(np.array(d, dtype=np.float32))
-            d = d[..., q * B:(q + 1) * B].to(device=self.device,
-                                              dtype=torch.float32)
-            out.append(gaussian(shape, s, None, d))
+            d = as_draw(noise[c][name] if i is None else noise[c][name][i],
+                        self.device)
+            out.append(gaussian(shape, s, None, d[..., q * B:(q + 1) * B]))
         return torch.stack(out)
 
     # ---- the chain on this rank's block ----
@@ -291,7 +281,7 @@ class ShardedLinkProgram(torch.nn.Module):
                                 "phase")
             # the walk so far: the sums of the blocks before this one
             totals = self.mesh.all_gather(steps.sum(dim=-1), self.time_axis)
-            phase = (torch.cumsum(steps, dim=-1)
+            phase = (running_sum(steps)
                      + totals[:self._t.index].sum(dim=0)[:, None])
         if spec.df:
             phase = (self.df_phase.expand(lc, B) if phase is None

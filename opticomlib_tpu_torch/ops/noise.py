@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["ase_power", "ase_sigma", "gaussian", "wiener_phase",
-           "ase_draws"]
+__all__ = ["ase_power", "ase_sigma", "gaussian", "as_draw", "wiener_phase",
+           "running_sum", "ase_draws", "keyed_generator"]
 
 
 def gaussian(shape, sigma, generator: torch.Generator,
@@ -33,6 +33,26 @@ def gaussian(shape, sigma, generator: torch.Generator,
     return draw * sigma
 
 
+def as_draw(d, device) -> torch.Tensor:
+    """Injected unit draws ``d`` (an array, a list or a tensor) as a
+    float32 tensor on ``device``: the ``draw`` that :func:`gaussian`
+    takes."""
+    if not isinstance(d, torch.Tensor):
+        d = torch.from_numpy(np.array(d, dtype=np.float32))
+    return d.to(device=device, dtype=torch.float32)
+
+
+def keyed_generator(device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded by the non-negative integers ``key``
+    (mixed by NumPy's ``SeedSequence``): draws that are a function of a
+    logical position, e.g. (channel seed, noise stage, block), whatever
+    computes them when."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([int(k) for k in key])
+                        .generate_state(1, np.uint64)[0]))
+    return gen
+
+
 def wiener_phase(n: int, sigma_step, generator: torch.Generator,
                  draw: torch.Tensor = None) -> torch.Tensor:
     """Wiener (random-walk) laser phase: the float32 cumulative sum of
@@ -40,8 +60,35 @@ def wiener_phase(n: int, sigma_step, generator: torch.Generator,
     ``opticomlib_tpu.ops.noise.wiener_phase_inside``; reference
     devices.py:485-490).  ``draw``: unit normals to use instead of the
     generator's.  torch and XLA sum in different orders, so the walk agrees
-    with the JAX one to float32 round-off, not bit for bit."""
-    return torch.cumsum(gaussian((n,), sigma_step, generator, draw), dim=0)
+    with the JAX one to float32 round-off, not bit for bit; one seed gives
+    one walk (:func:`running_sum`)."""
+    return running_sum(gaussian((n,), sigma_step, generator, draw))
+
+
+_SCAN_BLOCK = 1024
+
+
+def running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis, the same bits on every call.
+
+    torch's CUDA ``cumsum`` of a single run longer than one tile is a
+    decoupled look-back scan: how it adds the tiles' sums depends on which
+    tile finishes first, so two calls on the same float32 input differ in
+    round-off.  Here each block of 1024 samples is scanned alone (a scan
+    along the last axis of a 2-D view, in a fixed order) and the blocks'
+    totals the same way, recursively; a run of at most one block is one
+    tile."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return torch.cumsum(x, dim=-1)
+    R = -(-n // _SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, R * _SCAN_BLOCK - n)).reshape(
+        x.shape[:-1] + (R, _SCAN_BLOCK))
+    inner = torch.cumsum(blocks, dim=-1)
+    before = torch.nn.functional.pad(running_sum(inner[..., -1])[..., :-1],
+                                     (1, 0))
+    return (inner + before[..., None]).reshape(
+        x.shape[:-1] + (R * _SCAN_BLOCK,))[..., :n]
 
 
 def ase_power(G_dB: float, NF_dB: float, f0: float, fs: float) -> float:

@@ -114,9 +114,9 @@ class LinkMesh:
 
     The collectives (:meth:`all_reduce`, :meth:`all_gather`,
     :meth:`gather_rows`) run over one named axis, or the whole mesh with
-    ``axis=None``; every rank of the line (or mesh) calls them.  Complex
-    tensors cross as their float32 (re, im) pairs (NCCL has no complex
-    type)."""
+    ``axis=None``; every rank of the line (or mesh) calls them, as it calls
+    the point-to-point :meth:`ppermute` along an axis.  Complex tensors
+    cross as their float32 (re, im) pairs (NCCL has no complex type)."""
 
     def __init__(self, ranks, axis_names=("wdm", "time")):
         ranks = np.asarray(ranks, dtype=np.int64)
@@ -163,6 +163,7 @@ class LinkMesh:
                                     self.coords[name],
                                     tuple(int(r) for r in line))
             self._axes[name] = mine
+        self._p2p_ready = set()    # the axes that have had a collective
 
     def axis(self, name: str) -> MeshAxis:
         """The axis ``name`` as this rank sees it: its line's group, size and
@@ -220,6 +221,54 @@ class LinkMesh:
             parts = [by_rank[int(r)] for r in self.ranks.reshape(-1)]
         out = torch.stack(parts)
         return torch.view_as_complex(out) if t.is_complex() else out
+
+    def ppermute(self, t: torch.Tensor, axis: str,
+                 perm) -> Optional[torch.Tensor]:
+        """Point-to-point moves along ``axis``, the counterpart of
+        ``jax.lax.ppermute``: ``perm`` holds ``(source, destination)`` pairs
+        of positions along the axis (each position at most once a source
+        and once a destination), the same list on every rank of the line,
+        which all make the call.  A source sends its ``t``; a destination
+        returns what it received, a new tensor of ``t``'s shape and dtype,
+        and a rank that no pair sends to returns ``None`` (JAX gives zeros).
+        Every rank passes a ``t`` of the same shape and dtype, which only
+        the sources read: the ring is ``[(i, (i - 1) % S) for i in
+        range(S)]``, the open chain ``[(i, i + 1) for i in range(S - 1)]``.
+        A pair from a rank to itself is a local copy (NCCL has no send to
+        self); complex tensors cross as their float32 (re, im) pairs in one
+        ``batch_isend_irecv``.  The first call along an axis of more than
+        one rank is preceded by a one-element all-reduce over the axis:
+        NCCL requires a group's first collective call to be one that every
+        rank of the group joins, and a ``batch_isend_irecv`` joins only the
+        ranks of its pairs."""
+        ax = self.axis(axis)
+        me = ax.index
+        for side in zip(*perm):
+            if len(set(side)) != len(side):
+                raise ValueError(f"a position of '{axis}' appears more than "
+                                 f"once as a source or destination in {perm}")
+        if ax.size > 1 and axis not in self._p2p_ready:
+            dist.all_reduce(torch.zeros(1, device=self.device),
+                            group=ax.group)
+            self._p2p_ready.add(axis)
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+        if src and src[0] == me:
+            return t.clone(memory_format=torch.contiguous_format)
+        ops, recv = [], None
+        if dst:
+            send = torch.view_as_real(t) if t.is_complex() else t
+            ops.append(dist.P2POp(dist.isend, send.contiguous(),
+                                  ax.ranks[dst[0]], ax.group))
+        if src:
+            recv = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            buf = torch.view_as_real(recv) if recv.is_complex() else recv
+            ops.append(dist.P2POp(dist.irecv, buf, ax.ranks[src[0]],
+                                  ax.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return recv
 
     def gather_rows(self, t: torch.Tensor,
                     axis: Optional[str]) -> torch.Tensor:

@@ -21,6 +21,7 @@ NVLink), i.e. ``make_link_mesh(n_wdm=n_hosts, n_time=cards_per_host)``.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Optional
@@ -52,6 +53,11 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     other: a card whose NCCL does not come up raises.  ``timeout_s``: the
     collectives' time limit (a hung collective fails instead of waiting;
     default: the backend's).
+
+    The process group is destroyed when the interpreter exits, as
+    ``jax.distributed`` shuts itself down: a gloo group left for the
+    interpreter's teardown can abort the process ("terminate called without
+    an active exception") after all its work is done.
     """
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
@@ -82,4 +88,11 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     else:
         backend = "gloo"
     dist.init_process_group(backend, init_method=init_method, **kw)
+    atexit.register(_shutdown)
     return dist.get_world_size()
+
+
+def _shutdown() -> None:
+    """Destroy the default process group if it is still up."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

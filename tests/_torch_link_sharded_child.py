@@ -225,7 +225,7 @@ def check_validation(ctx):
     _raises(ValueError, "shape", lambda: pr.dsp_wdm(4, bits=np.zeros((4, 17))))
     _raises(ValueError, "not both", lambda: link.build_link(
         make_spec(link), N_BITS, params, mesh=mesh, span_mesh=mesh))
-    _raises(NotImplementedError, "ROADMAP.md Queue 1 item 5",
+    _raises(ValueError, "no axis 'span'",
             lambda: link.build_link(make_spec(link), N_BITS, params,
                                     span_mesh=mesh))
     _raises(ValueError, "no axis 'time'", lambda: link.build_link(

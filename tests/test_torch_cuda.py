@@ -596,6 +596,102 @@ def test_pd_after_fiber_mesh_on_card(cuda_device, nccl_mesh):
     gv.default()
 
 
+def test_laser_walk_same_bits_every_call(cuda_device):
+    """The Wiener walk at 2^24 samples, and a link with a laser linewidth,
+    give the same bits on every call with the same seed (torch's CUDA
+    cumsum of one long run does not)."""
+    from opticomlib_tpu_torch.ops import noise
+    walks = [noise.wiener_phase(2**24, 2e-3, torch.Generator(
+        device=cuda_device).manual_seed(7)) for _ in range(3)]
+    assert all(torch.equal(w, walks[0]) for w in walks[1:])
+    spec = link.LinkSpec(Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=10.0,
+                         pulse_shape="gaussian", loss_dB=3, ER_dB=26,
+                         pd_BW=7.5e9, lw=1e5, rin=-150.0)
+    prog = link.build_link(spec, 2**18, SimParams.create(
+        sps=16, R=10e9, _warn=False), device=cuda_device)
+    bits = torch.as_tensor(prbs(15, length=2**18)[0].astype(np.float32),
+                           device=cuda_device)
+    assert torch.equal(prog(bits, seed=3)[0], prog(bits, seed=3)[0])
+
+
+_PIPE_STAGES = {
+    "o4_dbp": (link.RepeatSpec(4, (link.FiberSpec(
+        length=20.0, alpha=0.2, beta_2=-21.0, gamma=1.3, method="o4",
+        h=5.0), link.EDFASpec(G=4.0, NF=5.0))), link.RepeatSpec(4, (
+            link.DBPSpec(length=20.0, alpha=0.2, beta_2=-21.0, gamma=1.3,
+                         method="o4", h=5.0, undo_gain_dB=4.0),))),
+    "adaptive_bw": (link.FiberSpec(length=20.0, alpha=0.2, beta_2=-21.0,
+                                   gamma=1.3, phi_max=0.01),
+                    link.EDFASpec(G=4.0, BW=60e9), link.DMSpec(D=420.0),
+                    link.BPFSpec(BW=80e9)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PIPE_STAGES))
+def test_pipelined_link_on_card(cuda_device, nccl_mesh, name):
+    """build_link(span_mesh=) at world size 1 over NCCL, 2 channels of 2^16
+    bits x 16, against the sequential LinkProgram.dsp_wdm on the CPU on the
+    same draws: errors equal, every channel's eye scalars within 1e-4 (the
+    two programs differ by 1e-6 on one device, the rest is the card against
+    the CPU); the kicks, products and histograms through the kernels.  No
+    ADC: its codes move by a level where the two devices' round-off puts a
+    sample across a boundary (chip_smoke.py phase 5), which moves the
+    spreads by 1e-3."""
+    from opticomlib_tpu_torch.parallel import make_span_mesh
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=10.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        stages=_PIPE_STAGES[name])
+    params = SimParams.create(sps=16, R=10e9, _warn=False)
+    n_bits, n = 2**16, 2**20
+    rng = np.random.default_rng(8)
+    noise = [{"ase": [rng.standard_normal((4, n), dtype=np.float32)
+                      for _ in range(4)],
+              "thermal": rng.standard_normal(n, dtype=np.float32),
+              "shot": rng.standard_normal(n, dtype=np.float32)}
+             for _ in range(2)]
+    mesh = make_span_mesh(1)
+    assert mesh.device.type == "cuda"
+    kernels.reset_launches()
+    g = link.build_link(spec, n_bits, params, span_mesh=mesh).dsp_wdm(
+        2, seed=0, noise=noise, sps_resamp=128)
+    launches = dict(kernels.LAUNCHES)
+    c = link.build_link(spec, n_bits, params, device="cpu").dsp_wdm(
+        2, bits=g.tx, seed=0, noise=noise, sps_resamp=128)
+    np.testing.assert_array_equal(g.n_errors, c.n_errors)
+    for k in ("threshold", "mu0", "mu1", "s0", "s1"):
+        np.testing.assert_allclose(getattr(g, k), getattr(c, k), rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+    for k in ("nl_halfstep", "cmul", "histogram2d"):
+        assert launches[k] > 0, launches
+
+
+def test_span_pipeline_on_card(cuda_device, nccl_mesh):
+    """span_pipeline at world size 1 on the card: the spans one after
+    another (keyed ASE drawn on the card, replayed by hand)."""
+    from opticomlib_tpu_torch.ops import ssfm
+    from opticomlib_tpu_torch.parallel import make_span_mesh, span_pipeline
+    from opticomlib_tpu_torch.ops.noise import keyed_generator
+    A = torch.stack([_field((2**18,), s, cuda_device) for s in (1, 2)])
+    fs, L = 160e9, 5.0
+    out = span_pipeline(A, make_span_mesh(1), fs, L, alpha=0.2,
+                        beta_2=-21.0, gamma=1.3, h=None, phi_max=0.02,
+                        NF=5.0, seed=4)
+    assert out.local.device.type == "cuda" and out.shape == (2, 2**18)
+    w = 2 * np.pi * np.fft.fftfreq(2**18) * fs
+    from scipy.constants import c as c_light
+    from opticomlib_tpu_torch.ops.noise import ase_sigma
+    sigma = float(np.float32(ase_sigma(1.0, 5.0, c_light / 1550e-9, fs)))
+    for m in range(2):
+        y, _ = ssfm.ssfm_propagate(A[m], w, L, alpha=0.2, beta_2=-21.0,
+                                   gamma=1.3, phi_max=0.02)
+        d = torch.randn((2, 2**18), generator=keyed_generator(
+            cuda_device, 4, m, 0), device=cuda_device) * sigma
+        y = y * float(np.float32(10 ** 0.05)) + torch.complex(d[0], d[1])
+        err = (out.local[m] - y).abs().max() / y.abs().max()
+        assert float(err) <= 5e-4
+
+
 def test_profiling_trace_on_card(cuda_device, tmp_path):
     """The Chrome trace of a block holds the named region and the kernels'
     names; DeviceTimer agrees with CUDA events."""

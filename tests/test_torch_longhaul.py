@@ -154,6 +154,23 @@ def test_wiener_phase_walk_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(1,), (1024,), (1025,), (2**16 + 3,),
+                                   (3, 5000), (2, 1, 2**20)])
+def test_running_sum_is_a_cumulative_sum(shape):
+    """The blocked running sum of the laser walk: a cumulative sum over the
+    last axis to float32 round-off of the float64 one, at the lengths
+    around its 1024-sample block and with leading axes."""
+    from opticomlib_tpu_torch.ops.noise import running_sum
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        shape, dtype=np.float32))
+    got = running_sum(x)
+    want = torch.cumsum(x.double(), dim=-1)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    scale = float(want.abs().max()) + 1.0
+    assert float((got.double() - want).abs().max()) <= 1e-6 * scale * (
+        1 + np.log2(shape[-1]))
+
+
 def test_rin_clamp_sets_the_flag_and_warns():
     """A RIN draw below -1 darkens its sample instead of NaN-ing the chain,
     and the run reports it (rin_ok False plus a RuntimeWarning)."""

@@ -31,7 +31,9 @@ _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
             "opticomlib_tpu_torch.parallel.multihost",
             "opticomlib_tpu_torch.parallel.halo",
             "opticomlib_tpu_torch.parallel.dfft",
-            "opticomlib_tpu_torch.parallel.fiber")
+            "opticomlib_tpu_torch.parallel.fiber",
+            "opticomlib_tpu_torch.parallel.pipeline",
+            "opticomlib_tpu_torch.link_pipeline")
 
 
 def test_port_imports_no_jax():

@@ -62,7 +62,15 @@ def _run_ranks(world, out_dir, suite, child=CHILD):
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=TIME_LIMIT)
+            try:
+                out, _ = p.communicate(timeout=TIME_LIMIT)
+            except subprocess.TimeoutExpired:
+                # the run is over its limit: kill every rank and keep what
+                # each printed, so the failure says where they stood
+                for q in procs:
+                    q.kill()
+                out, _ = p.communicate()
+                out = f"(killed after {TIME_LIMIT} s)\n{out}"
             outs.append(out)
     finally:
         for p in procs:
@@ -361,6 +369,25 @@ def test_multihost_initialize_idempotent(monkeypatch):
     assert kw["timeout"].total_seconds() == 60
 
 
+def test_multihost_group_destroyed_at_exit(tmp_path):
+    """The process group that initialize_multihost brings up is destroyed
+    when the interpreter exits, before its teardown (an exit handler
+    registered before the bring-up runs after it and finds no group)."""
+    code = (
+        "import atexit, sys\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.dirname(CHILD))!r})\n"
+        "import torch.distributed as dist\n"
+        "atexit.register(lambda: print('left up:', dist.is_initialized()))\n"
+        "from opticomlib_tpu_torch.parallel import initialize_multihost\n"
+        f"initialize_multihost('file://{tmp_path}/r', 1, 0, device='cpu')\n"
+        "print('up:', dist.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["up:", "True", "left", "up:", "False"], (
+        out.stdout, out.stderr)
+
+
 def test_multihost_without_card_raises(monkeypatch):
     """No device named means the card; without one the bring-up raises and
     does not start gloo instead."""
@@ -383,7 +410,7 @@ def test_make_link_mesh_needs_the_runtime():
 def test_public_names():
     from opticomlib_tpu import parallel as jparallel
     from opticomlib_tpu.parallel import multihost as jmultihost
-    not_ported = {"make_span_mesh", "span_pipeline"}   # the span pipeline
+    not_ported = set()
     assert set(tparallel.__all__) == set(jparallel.__all__) - not_ported
     for t, j in ((tfiber, jfiber), (tdfft, jdfft), (thalo, jhalo),
                  (tmultihost, jmultihost)):
