@@ -136,7 +136,23 @@ It checks them in phases, one line each; any failure exits non-zero:
     the same seed again equal, another seed moving the thresholds);
     ``span_pipeline`` of 4 microbatches of 2^24 samples through config 2's
     50 km adaptive fiber with ASE on injected draws, within 5e-4 of the peak
-    of the span applied to each by hand.
+    of the span applied to each by hand;
+20. the staged leftovers at 2^24 samples, on the staged README chain's grid
+    (fs = 640 GHz): 20.1 the ``fbg_rk4`` kernel against its plain loop on
+    the card at 2^20 bins for two gratings (uniform kL = 2, 512 RK4 steps;
+    gaussian-apodized kL = 8 chirped F = 10, 1587 steps; R and S to 1e-4 of
+    their peak, H = S/R to 1e-4) and at the main path's 2^24 bins for
+    both, timed at 2^24 beside its bound and the plain loop; 20.2 ``FBG`` on the chain's
+    modulated field at 2^24 for both gratings (the uniform one's peak |H|
+    within 1e-3 of tanh 2, and the card against the CPU at 2^20 on the same
+    input to 1e-4); 20.3 ``FIBER(return_steps=True)`` on config 2's launch
+    field at 2^24 (50 km, phi_max-adaptive): the step count equal to the
+    JAX package's ``_ssfm_trajectory`` pinned on the CPU, the last frame's
+    peak power and the last step's start to the pin, the frames at 2^20 on
+    the card against the CPU, launches, wall time, peak memory; 20.4
+    ``GET_EYE(engine="host")`` on the chain's PD output at 2^24 against the
+    device engine (levels and crossings to 2e-4, the threshold to 2e-4 or
+    within the KDE plateau plus two grid steps).
 
 The line before the last is a JSON object with, for each kernel, its
 launches (summed over the counted runs of the paths; per path under
@@ -256,6 +272,16 @@ PINNED3 = dict(ber=0.0, threshold=0.2106698, mu0=0.00760770, mu1=0.3787725,
 # the mean over the 16 channels and its spread their standard deviation;
 # every channel of a sweep, at any length, is held to the mean within 5
 # such deviations.
+# The JAX package's trajectory of config 2's launch field at 2^24 samples
+# (phase 20.3), taken on the CPU by the loop of ``ops.ssfm._ssfm_trajectory``
+# (the frames not kept; the launch field from ``build_link(<config 2 with
+# stages=()>, 2**18, return_field=True)`` on ``prbs(15)``, 50 km, alpha 0.2,
+# beta_2 -21, gamma 1.3, phi_max 0.01): 58 steps, the last starting at
+# z = 49.033213413556524 km, and max|A|^2 of the last frame 0.002851787954568863
+# W.  At 2^20 samples it takes 58 steps too.
+PINNED_TRAJ = dict(n_steps=58, z_last_start=49.033213413556524,
+                   max_power_last=0.002851787954568863)
+
 PINNED5 = dict(ber=0.0, threshold=0.740273, mu0=0.0596429, mu1=1.0102078,
                s0=0.0462687, s1=0.0182648)
 PINNED5_STD = dict(threshold=0.0038877, mu0=0.0015346, mu1=0.00046230,
@@ -284,6 +310,8 @@ REPLACES = {
                      "opticomlib_tpu/ops/pallas_kernels.py:289"),
     "fir_filter": ("cuda", "opticomlib_tpu_torch/ops/csrc/fir_filter.cu",
                    "opticomlib_tpu/ops/pallas_kernels.py:168"),
+    "fbg_rk4": ("cuda", "opticomlib_tpu_torch/ops/csrc/fbg_rk4.cu",
+                "opticomlib_tpu/devices.py:1127 (_fbg_rk4, lax.scan)"),
 }
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 3.35 TB/s; float32
@@ -496,6 +524,260 @@ def staged_chain(torch, n_bits, device, np_seed=None, gv_seed=None,
                 threshold=rth, eye=eye, walls=walls, device=pdo.device.type)
 
 
+#: how far the adaptive trajectory's positions may drift between the card
+#: and a CPU (km, 1e-4 of the 50 km span): each step is phi_max / (gamma
+#: max|A|^2), and max|A|^2 of fields that differ by FFT round-off differs by
+#: ~2e-5 relative (the last frame's, card against the JAX pin), so the sum
+#: of 57 such steps moves by a few 1e-5 of the span
+Z_TOL_KM = 5e-3
+#: float32 operations a bin and RK4 step of the coupled-mode equations, the
+#: least the function needs: three detunings delta + s p - F z (3 each; the
+#: chirp terms F z are the same for every bin and made once a step) and
+#: couplings k p (1 each), four derivatives (8 products, 4 sums), three
+#: stage states (4 products and 4 sums each) and the update k1 + 2 (k2 + k3)
+#: + k4, times dz/6, plus R (6 for each of R, S's 4 floats)
+FBG_FLOP_PER_STEP = 3 * 3 + 3 + 4 * 12 + 3 * 8 + 4 * 6
+#: the two gratings of phase 20: a uniform one (the JAX tests') and a
+#: gaussian-apodized chirped one, both on the chain's centre frequency
+FBG_GRATINGS = {"uniform kL=2": dict(kL=2.0, apodization="uniform", F=0.0),
+                "gaussian kL=8 F=10": dict(kL=8.0, apodization="gaussian",
+                                           F=10.0)}
+
+
+def fbg_inputs(n: int, kL: float, apodization, F: float, dev) -> tuple:
+    """The ``fbg_rk4`` arguments of ``FBG(fc=f0, vdneff=1e-4, kL=kL,
+    apodization=apodization, F=F)`` on an ``n``-bin grid at the staged
+    chain's rate, made by the code ``devices.FBG`` runs; the step count is
+    the last."""
+    from scipy.constants import c, pi
+
+    from opticomlib_tpu_torch import devices as D
+    f0 = c / 1550e-9
+    lam_D, L, dneff, vdneff = D._fbg_resolve_geometry(
+        1.45, 1.0, None, f0, kL, None, None, None, 1e-4)
+    w = 2 * pi * np.fft.fftshift(np.fft.fftfreq(n, 1 / (SPS * R)))
+    lam = 2 * pi * c / (w + 2 * pi * f0)
+    return D._fbg_rk4_inputs(lam, 1.45, lam_D, L, dneff, vdneff, apodization,
+                             F, dev)
+
+
+def fbg_errors(torch, kernels, args) -> tuple:
+    """``fbg_rk4`` against ``fbg_rk4_ref`` on the same arguments: the larger
+    error of R and S over their peak, that of H = S/R, the largest absolute
+    error of R and S, and the plain loop's wall time in ms (one call)."""
+    R_, S_ = kernels.fbg_rk4(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Rr, Sr = kernels.fbg_rk4_ref(*args)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    e_rs = max(float((R_ - Rr).abs().max() / Rr.abs().max()),
+               float((S_ - Sr).abs().max() / Sr.abs().max()))
+    e_h = float((S_ / R_ - Sr / Rr).abs().max())
+    e_abs = float(max((R_ - Rr).abs().max(), (S_ - Sr).abs().max()))
+    return e_rs, e_h, e_abs, plain
+
+
+def staged_leftovers(torch, kernels, link, prbs, spec, params, dev):
+    """Phase 20: the grating kernel, ``FBG``, the fiber's trajectory and the
+    host eye engine at 2^24 samples.  Returns the kernel numbers of
+    ``fbg_rk4`` for the JSON line and the launches of each path."""
+    from opticomlib_tpu_torch import devices as D, gv
+    from opticomlib_tpu_torch.signals import OpticalSignal
+    t20 = time.perf_counter()
+    out = {"launches": {}}
+
+    # 20.1 the kernel against its plain loop at 2^20 bins and at the main
+    # path's 2^24 (one call of each there; the plain loop is ~75 tensor
+    # passes a step), and its time
+    errs = []
+    for label, g in FBG_GRATINGS.items():
+        a20 = fbg_inputs(2**20, dev=dev, **g)
+        n_steps = a20[-1]
+        e_rs, e_h, e_abs, _ = fbg_errors(torch, kernels, a20)
+        check(e_rs <= 1e-4 and e_h <= 1e-4, 20,
+              f"fbg_rk4 {label} at 2^20: R, S off by {e_rs:.3g} of the "
+              f"peak, H by {e_h:.3g} (1e-4)")
+        errs.append(e_abs)
+        n24 = 2**24
+        a24 = fbg_inputs(n24, dev=dev, **g)
+        e24_rs, e24_h, e_abs, plain24 = fbg_errors(torch, kernels, a24)
+        check(e24_rs <= 1e-4 and e24_h <= 1e-4, 20,
+              f"fbg_rk4 {label} at 2^24: R, S off by {e24_rs:.3g} of the "
+              f"peak, H by {e24_h:.3g} (1e-4)")
+        errs.append(e_abs)
+        k_ms = cuda_ms(torch, lambda: kernels.fbg_rk4(*a24), reps=5)
+        k20_ms = cuda_ms(torch, lambda: kernels.fbg_rk4(*a20), reps=5)
+        p20_ms = cuda_ms(torch, lambda: kernels.fbg_rk4_ref(*a20), reps=1)
+        b24 = bound_ms(28 * n24 + 16 * n_steps,
+                       FBG_FLOP_PER_STEP * n24 * n_steps)
+        b20 = bound_ms(28 * 2**20 + 16 * n_steps,
+                       FBG_FLOP_PER_STEP * 2**20 * n_steps)
+        out[label] = dict(n_steps=n_steps, ms24=k_ms, bound24=b24,
+                          plain24=plain24, ms20=k20_ms, plain20=p20_ms,
+                          bound20=b20)
+        print(f"phase 20.1 fbg_rk4 {label} ({n_steps} steps): ok R, S to "
+              f"{e_rs:.2g} of the peak and H to {e_h:.2g} at 2^20 bins, "
+              f"{e24_rs:.2g} and {e24_h:.2g} at 2^24; 2^24 bins {k_ms:.3f} "
+              f"ms (bound {b24[0]:.3f} ms, {b24[1]}; {b24[0] / k_ms:.0%}) vs "
+              f"plain {plain24:.0f} ms (one call); 2^20 bins {k20_ms:.3f} ms "
+              f"vs plain {p20_ms:.1f} ms (bound {b20[0]:.4f} ms)", flush=True)
+        del a20, a24
+    out["err"] = max(errs)
+
+    # 20.2 FBG on the staged chain's modulated field
+    gv.default()
+    gv(sps=SPS, R=R, wavelength=1550e-9, Vpi=5, N=N_BITS, device="cuda")
+    np.random.seed(20)
+    tx = D.PRBS(order=15, len=gv.N)
+    v = D.DAC(tx, Vpp=5, offset=-2.5, pulse_shape="gaussian")
+    mod = D.MZM(D.LASER(P0=5), v, bias=-2.5, Vpi=5, loss_dB=3, ER_dB=26)
+    check(mod.size == 2**24 and mod.device.type == "cuda", 20,
+          f"chain field {mod.size} on {mod.device}")
+    for label, g in FBG_GRATINGS.items():
+        kw = dict(fc=gv.f0, vdneff=1e-4, kL=g["kL"],
+                  apodization=g["apodization"], F=g["F"])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        y, H = D.FBG(mod, print_params=False, retH=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        out["launches"]["fbg " + label] = launches
+        peak = float(np.abs(H).max())
+        ok = (launches["fbg_rk4"] == 1 and y.signal.shape == mod.signal.shape
+              and bool(torch.isfinite(torch.view_as_real(y.signal)).all())
+              and np.isfinite(H).all() and 0.9 < peak <= 1 + 1e-3)
+        if g["apodization"] == "uniform":
+            ok = ok and abs(peak - np.tanh(g["kL"])) <= 1e-3
+        check(ok, 20, f"FBG {label}: launches {launches}, peak |H| {peak}, "
+              f"output {tuple(y.signal.shape)}")
+        print(f"phase 20.2 FBG {label} (2^24 samples): ok peak |H| "
+              f"{peak:.6f}" + (f" (tanh {np.tanh(g['kL']):.6f})"
+                               if g["apodization"] == "uniform" else "")
+              + f"; wall {wall:.2f} s; launches {launches}", flush=True)
+        del y, H
+    # the card against the CPU at 2^20 on the same input
+    g = FBG_GRATINGS["uniform kL=2"]
+    x = mod.signal[: 2**20].cpu()
+    res = {}
+    for where in ("cuda", "cpu"):
+        gv(sps=SPS, R=R, wavelength=1550e-9, N=2**14, device=where)
+        t0 = time.perf_counter()
+        res[where] = D.FBG(OpticalSignal(x.to(where)), fc=gv.f0,
+                           vdneff=1e-4, kL=g["kL"], print_params=False,
+                           retH=True)
+        res[where + " s"] = time.perf_counter() - t0
+    e_h = float(np.abs(res["cuda"][1] - res["cpu"][1]).max())
+    yc, yh = res["cuda"][0].signal.cpu(), res["cpu"][0].signal
+    e_y = float((yc - yh).abs().max() / yh.abs().max())
+    check(e_h <= 1e-4 and e_y <= 1e-4, 20,
+          f"FBG card vs CPU at 2^20: H off by {e_h:.3g}, output by {e_y:.3g} "
+          f"of the peak (1e-4)")
+    print(f"phase 20.2 FBG card vs CPU (2^20 samples): ok H to {e_h:.2g}, "
+          f"output to {e_y:.2g} of the peak; card {res['cuda s']:.2f} s, CPU "
+          f"{res['cpu s']:.2f} s", flush=True)
+    del res, x, yc, yh
+
+    # 20.4 the host eye engine on the chain's PD output
+    gv(sps=SPS, R=R, wavelength=1550e-9, Vpi=5, N=N_BITS, device="cuda")
+    fib = D.FIBER(mod, length=50, alpha=0.2, beta_2=-20, gamma=2)
+    pdo = D.PD(fib, BW=0.75 * R, r=1, include_noise="all")
+    del fib, mod, v
+    walls = {}
+    eyes = {}
+    for engine in ("host", "device"):
+        walls[engine] = []
+        for _ in range(2):  # first and second call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eyes[engine] = D.GET_EYE(pdo, engine=engine)
+            torch.cuda.synchronize()
+            walls[engine].append(time.perf_counter() - t0)
+    h, d = eyes["host"], eyes["device"]
+    bad = [k for k in ("mu0", "mu1", "s0", "s1", "t_opt", "t_left",
+                       "t_right", "er", "eye_h")
+           if not abs(getattr(d, k) - getattr(h, k))
+           <= 2e-4 * abs(getattr(h, k)) + 2e-5]
+    plateau = max(h.threshold_plateau, d.threshold_plateau)
+    thr_gap = abs(d.threshold - h.threshold)
+    check(not bad and (thr_gap <= 2e-4 * abs(h.threshold) + 2e-5 or thr_gap
+                       <= plateau + 2 * (h.mu1 - h.mu0) / 499), 20,
+          f"GET_EYE host vs device: {bad} beyond 2e-4; threshold "
+          f"{h.threshold} vs {d.threshold} (plateau {plateau:.3g})")
+    print(f"phase 20.4 GET_EYE host vs device engine (2^24 samples): ok "
+          f"mu0 {h.mu0:.6e} mu1 {h.mu1:.6e} s0 {h.s0:.6e} s1 {h.s1:.6e}, "
+          f"threshold {h.threshold:.7f} vs {d.threshold:.7f} (plateau "
+          f"{plateau:.3g}); wall host {walls['host'][0]:.3f}, "
+          f"{walls['host'][1]:.3f} s, device {walls['device'][0]:.3f}, "
+          f"{walls['device'][1]:.3f} s (first, second call)", flush=True)
+    del pdo, eyes, h, d
+
+    # 20.3 the trajectory of config 2's launch field
+    gv(sps=SPS, R=R, N=N_BITS, device="cuda")
+    b2b = link.build_link(dataclasses.replace(spec, stages=()), N_BITS,
+                          params, device=dev, return_field=True)
+    A0 = b2b.run(bits=prbs(15, length=N_BITS)[0]).field.contiguous()
+    fib = dict(length=50.0, alpha=0.2, beta_2=-21.0, gamma=1.3, phi_max=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    z, A_z = D.FIBER(OpticalSignal(A0), return_steps=True, **fib)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    out["launches"]["trajectory"] = launches
+    peak_mem = torch.cuda.max_memory_allocated()
+    pin = PINNED_TRAJ
+    steps = z.size - 1
+    p_last = float(torch.view_as_real(A_z[-1]).double().square().sum(-1).max())
+    check(steps == pin["n_steps"] and A_z.shape == (z.size, 2**24)
+          and A_z.device.type == "cuda" and z[-1] == 50.0
+          and abs(z[-2] - pin["z_last_start"]) <= Z_TOL_KM
+          and abs(p_last - pin["max_power_last"])
+          <= 1e-4 * pin["max_power_last"]
+          and launches["nl_halfstep"] == steps
+          and launches["cmul"] == 2 * steps, 20,
+          f"trajectory: {steps} steps (JAX {pin['n_steps']}), last start "
+          f"{z[-2]} (JAX {pin['z_last_start']}), last max|A|^2 {p_last} "
+          f"(JAX {pin['max_power_last']}), frames {tuple(A_z.shape)} on "
+          f"{A_z.device}, launches {launches}")
+    print(f"phase 20.3 FIBER(return_steps=True) (2^24 samples, 50 km): ok "
+          f"{steps} steps (JAX {pin['n_steps']}), last start {z[-2]:.9f} km "
+          f"(JAX {pin['z_last_start']:.9f}), last max|A|^2 {p_last:.9g} W "
+          f"(JAX {pin['max_power_last']:.9g}); {z.size} frames "
+          f"{A_z.numel() * 8 / 2**30:.2f} GiB; wall {wall:.2f} s; peak "
+          f"memory {peak_mem / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    del z, A_z, A0, b2b
+    # the frames at 2^20 on the card against the CPU
+    small = link.build_link(dataclasses.replace(spec, stages=()), SMALL_BITS,
+                            params, device=dev, return_field=True)
+    A1 = small.run(bits=prbs(15, length=SMALL_BITS)[0]).field.cpu()
+    traj = {}
+    for where in ("cuda", "cpu"):
+        gv(sps=SPS, R=R, N=SMALL_BITS, device=where)
+        traj[where] = D.FIBER(OpticalSignal(A1.to(where)), return_steps=True,
+                              **fib)
+    (zg, Ag), (zc, Ac) = traj["cuda"], traj["cpu"]
+    check(zg.size == zc.size == pin["n_steps"] + 1, 20,
+          f"trajectory at 2^20: {zg.size - 1} steps on the card, "
+          f"{zc.size - 1} on the CPU")
+    e_z = float(np.abs(zg - zc).max())
+    e_a = float((Ag[-1].cpu() - Ac[-1]).abs().max() / Ac[-1].abs().max())
+    check(e_z <= Z_TOL_KM and e_a <= 1e-4, 20,
+          f"trajectory card vs CPU at 2^20: z off by {e_z:.3g} km, last "
+          f"frame by {e_a:.3g} of the peak (1e-4)")
+    print(f"phase 20.3 trajectory card vs CPU (2^20 samples): ok "
+          f"{zg.size - 1} steps each, z to {e_z:.2g} km, last frame to "
+          f"{e_a:.2g} of the peak; phase 20 {time.perf_counter() - t20:.1f} "
+          f"s", flush=True)
+    gv.default()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -552,8 +834,9 @@ def main() -> None:
                             dtype=torch.complex64) * 0.1).contiguous()
 
     coeff = 1.3 * 0.38553 / 2  # gamma * h0 / 2 of the slice's first step
-    # fir_filter, the staged DAC's kernel, is checked in phase 8
-    err = {k: 0.0 for k in REPLACES if k != "fir_filter"}
+    # fir_filter, the staged DAC's kernel, is checked in phase 8, and
+    # fbg_rk4, the grating's, in phase 20
+    err = {k: 0.0 for k in REPLACES if k not in ("fir_filter", "fbg_rk4")}
     # (2, 2^24) is config 4's 2-polarisation field, multiplied by one
     # 2^24 spectral row; the negative coefficient is how the Yoshida w0
     # substep and every DBP span kick
@@ -1997,6 +2280,19 @@ def main() -> None:
     rendezvous.cleanup()
     del A0
 
+    # ---- phase 20: the staged leftovers at 2^24 samples ----
+    st = staged_leftovers(torch, kernels, link, prbs, spec, params, dev)
+    g20, g20b = st["uniform kL=2"], st["gaussian kL=8 F=10"]
+    err["fbg_rk4"] = st["err"]
+    ms["fbg_rk4"] = ms10["fbg_rk4"] = (g20["ms24"], g20["plain24"])
+    bounds["fbg_rk4"] = g20["bound24"]
+    ms["fbg_rk4_2^24_gauss"] = ms10["fbg_rk4_2^24_gauss"] = (
+        g20b["ms24"], g20b["plain24"])
+    bounds["fbg_rk4_2^24_gauss"] = g20b["bound24"]
+    for key, g in (("fbg_rk4_2^20_512", g20), ("fbg_rk4_2^20_gauss", g20b)):
+        ms[key] = ms10[key] = (g["ms20"], g["plain20"])
+        bounds[key] = g["bound20"]
+
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,
                "config3_soft": launches3s, "config5": launches5,
@@ -2004,12 +2300,19 @@ def main() -> None:
                "eye": launches_eye, "resumable": launches_res,
                "span_chain": launches_chain,
                **{"sharded_" + k: v for k, v in launches_sharded.items()},
-               "pipelined_config4": launches19, "span_pipeline": launches_sp}
+               "pipelined_config4": launches19, "span_pipeline": launches_sp,
+               **st["launches"]}
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},
             "fir_filter": {"fir_filter_64": "2^24 samples, 64 taps"},
-            "histogram2d": hist_also}
+            "histogram2d": hist_also,
+            "fbg_rk4": {"fbg_rk4_2^24_gauss": f"2^24 bins, {g20b['n_steps']} "
+                        "steps (gaussian kL = 8, F = 10); plain_ms one call",
+                        "fbg_rk4_2^20_512": "2^20 bins, 512 steps (uniform "
+                        "kL = 2)",
+                        "fbg_rk4_2^20_gauss": f"2^20 bins, {g20b['n_steps']} "
+                        "steps (gaussian kL = 8, F = 10)"}}
 
     def numbers(k):
         return {"ms": ms10[k][0], "plain_ms": ms10[k][1],
@@ -2025,6 +2328,8 @@ def main() -> None:
          "max_abs_err": err[k], **numbers(k),
          **({"shape": "by rows (1, 4096) eye window, 2^20 samples"}
             if k == "histogram2d" else {}),
+         **({"shape": "2^24 bins, 512 steps (uniform kL = 2); plain_ms one "
+                      "call"} if k == "fbg_rk4" else {}),
          **({"also": [{"shape": shape, **numbers(key)}
                       for key, shape in also[k].items()]}
             if k in also else {})}

@@ -25,30 +25,37 @@ key, from a ``torch.Generator`` on the signal's device
 Device inventory (reference file:line): PRBS 63-182, DAC 185-350, LASER
 353-510, PM 513-617, MZM 620-785, BPF 788-826, EDFA 829-942, DM 945-1035,
 FIBER 1038-1206, DBP 1209-1283, LPF 1286-1375, PD 1378-1555, ADC 1558-1632,
-GET_EYE 1635-1868, SAMPLER 1871-1891.  ``FBG``, the fiber animations and
-``FIBER(return_steps=True)`` are not ported yet.
+GET_EYE 1635-1868, SAMPLER 1871-1891, FBG 1894-2322, the fiber animations
+2326-2563.  ``FBG``'s coupled-mode integration is the ``fbg_rk4`` kernel
+(:func:`opticomlib_tpu_torch.ops.kernels.fbg_rk4`); the animations import
+Matplotlib when they are called.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import Literal, Optional
 
 import numpy as np
+import scipy.signal as sg
 import torch
-from scipy.constants import e, k as kB, pi
+from scipy.constants import c, e, k as kB, pi
 
 from . import rng
 from .eyediag import Eye
-from .ops import eyeana, filters, noise as noise_ops, prbs as prbs_ops, \
-    pulses, ssfm
+from .ops import eyeana, filters, kernels, noise as noise_ops, \
+    prbs as prbs_ops, pulses, ssfm
 from .params import current_device, gv
 from .signals import (NULL, BinarySequence, ElectricalSignal, OpticalSignal,
                       RealNumber, _has_noise)
-from .utils.analysis import idb, idbm, tic, toc
+from .utils.analysis import db, idb, idbm, si, tic, toc
+from .utils.analysis import dispersion as _dispersion_of, tau_g as _tau_g
+from .utils.analysis import rcos as _rcos_spectrum
 
 __all__ = ["PRBS", "DAC", "LASER", "PM", "MZM", "BPF", "EDFA", "DM", "FIBER",
-           "DBP", "LPF", "PD", "ADC", "GET_EYE", "SAMPLER"]
+           "DBP", "LPF", "PD", "ADC", "GET_EYE", "SAMPLER", "FBG",
+           "animated_fiber_propagation", "animated_fiber_propagation_with_phase"]
 
 
 def _legacy_normal(sigma, shape, device) -> torch.Tensor:
@@ -455,10 +462,17 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     operation or ``to_numpy()`` sees the whole field, gathered onto each
     rank's device (a collective every rank makes, as it makes this call).
 
+    ``show_progress``: a tqdm bar over the reference scheme's steps
+    (:class:`ops.ssfm.progress_bar`; ``tqdm`` is imported then).
+    ``return_steps=True`` (reference scheme, no mesh): return the
+    trajectory ``(z, A_z)`` instead, ``z`` the positions [km] as a float64
+    NumPy array and ``A_z`` the field at each, complex64 frames stacked on
+    the input's device, ``(steps + 1, n)`` or ``(steps + 1, 2, n)``
+    (:func:`ops.ssfm.ssfm_propagate`).
+
     Returns a complex64 :class:`OpticalSignal` whose ``n_steps`` attribute
     is the number of steps taken (attempted, for the step-doubling
-    schemes).  Not ported yet: ``return_steps=True``; ``show_progress``
-    warns and runs without a progress bar.
+    schemes).
     """
     tic()
     if not isinstance(input, OpticalSignal):
@@ -491,17 +505,10 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
         output.n_steps = out.n_steps
         output.execution_time = toc()
         return output
-    if return_steps:
+    if return_steps and method != "reference":
         toc()
-        if method != "reference":
-            raise ValueError("return_steps is only available with "
-                             "method='reference'.")
-        raise NotImplementedError(
-            "FIBER(return_steps=True) is not ported yet (the fiber "
-            "animations)")
-    if show_progress:
-        warnings.warn("show_progress is not ported; running without a "
-                      "progress bar.", RuntimeWarning, stacklevel=2)
+        raise ValueError("return_steps is only available with "
+                         "method='reference'.")
 
     A = input._total()
     w = input.w()
@@ -519,9 +526,16 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
             A, w, float(length), tol=float(tol),
             h0=None if h is None else float(h), **common)
     else:
-        A, steps = ssfm.ssfm_propagate(
-            A, w, float(length), phi_max=float(phi_max),
-            h=None if h is None else float(h), **common)
+        progress = show_progress and not return_steps
+        with ssfm.progress_bar() if progress else contextlib.nullcontext():
+            result = ssfm.ssfm_propagate(
+                A, w, float(length), phi_max=float(phi_max),
+                h=None if h is None else float(h), return_steps=return_steps,
+                **common)
+        if return_steps:
+            toc()  # balance the timer stack (no result object to annotate)
+            return result  # (z, A_z)
+        A, steps = result
 
     output = OpticalSignal(A, n_pol=input.n_pol)
     output.n_steps = int(steps)
@@ -724,14 +738,36 @@ def ADC(input, fs: Optional[float] = None, n: int = 8,
 _EYE_NAN_TO_NONE = ("threshold", "y_left", "y_right")
 
 
+def _eye_on_host(metrics: dict) -> dict:
+    """The tensor engine's result as the host engine gives it: the scalars
+    as Python numbers (one read-back for all), NaN as None where the host
+    engine says None, the traces as NumPy arrays."""
+    scalars = [k for k, v in metrics.items()
+               if isinstance(v, torch.Tensor) and v.ndim == 0]
+    values = torch.stack([metrics[k].to(torch.float64)
+                          for k in scalars]).tolist()
+    for k, v in zip(scalars, values):
+        metrics[k] = int(v) if k == "i" else v
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            metrics[k] = v.cpu().numpy()
+    for k in _EYE_NAN_TO_NONE:
+        if metrics.get(k) is not None and np.isnan(metrics[k]):
+            metrics[k] = None
+    return metrics
+
+
 def GET_EYE(input, nslots: int = 4096,
             sps_resamp: Optional[int] = None,
             engine: Literal["auto", "host", "device"] = "auto") -> Eye:
-    """Blind eye-diagram metrology (reference devices.py:1635-1868): the
-    tensor pipeline of :func:`ops.eyeana.eye_metrics`, the port of the JAX
-    package's device twin (``eye_metrics_jax``), on the signal's device;
-    ``engine="host"`` runs it on a CPU copy.  Level means and spreads
-    (``mu0/mu1/s0/s1``), crossing times (``t_left/t_right/t_opt``),
+    """Blind eye-diagram metrology (reference devices.py:1635-1868).
+
+    ``engine``: ``"host"`` runs the JAX package's NumPy pipeline
+    (:func:`ops.eyeana.eye_metrics_host`) on a host copy in float64;
+    ``"auto"`` and ``"device"`` run the tensor pipeline of
+    :func:`ops.eyeana.eye_metrics`, the port of the JAX package's device
+    twin (``eye_metrics_jax``), on the signal's device.  Level means and
+    spreads (``mu0/mu1/s0/s1``), crossing times (``t_left/t_right/t_opt``),
     ``er``, ``eye_h``, the KDE ``threshold`` and the sampling instant ``i``
     come back as Python numbers, the rendering traces as NumPy arrays."""
     tic()
@@ -745,22 +781,12 @@ def GET_EYE(input, nslots: int = 4096,
     if samples.ndim == 2:
         samples = samples.sum(dim=0)
     if engine == "host":
-        samples = samples.cpu()
-    metrics = eyeana.eye_metrics(samples, sps=input.sps, nslots=nslots,
-                                 sps_resamp=sps_resamp)
-    scalars = [k for k, v in metrics.items()
-               if isinstance(v, torch.Tensor) and v.ndim == 0]
-    # one read-back for every scalar
-    values = torch.stack([metrics[k].to(torch.float64)
-                          for k in scalars]).tolist()
-    for k, v in zip(scalars, values):
-        metrics[k] = int(v) if k == "i" else v
-    for k, v in metrics.items():
-        if isinstance(v, torch.Tensor):
-            metrics[k] = v.cpu().numpy()
-    for k in _EYE_NAN_TO_NONE:
-        if metrics.get(k) is not None and np.isnan(metrics[k]):
-            metrics[k] = None
+        metrics = eyeana.eye_metrics_host(samples, sps=input.sps,
+                                          nslots=nslots,
+                                          sps_resamp=sps_resamp)
+    else:
+        metrics = _eye_on_host(eyeana.eye_metrics(
+            samples, sps=input.sps, nslots=nslots, sps_resamp=sps_resamp))
     metrics["dt"] = input.dt
     metrics["execution_time"] = toc()
     return Eye(metrics)
@@ -776,3 +802,381 @@ def SAMPLER(input: ElectricalSignal, instant: int) -> ElectricalSignal:
     output = ElectricalSignal(input)[instant::gv.sps]
     output.execution_time = toc()
     return output
+
+
+# ---------------------------------------------------------------------------
+# FBG (reference devices.py:1894-2322)
+# ---------------------------------------------------------------------------
+def _fbg_apodization(apodization):
+    if apodization == "rcos":
+        return lambda z: _rcos_spectrum(z, alpha=1, T=2)
+    if apodization == "gaussian":
+        return lambda z: np.exp(-4 * np.log(2) * (3 * z) ** 2)
+    if apodization == "parabolic":
+        return lambda z: 1 - (2 * z) ** 2
+    if apodization == "uniform":
+        return None
+    if callable(apodization):
+        return apodization
+    if isinstance(apodization, str):
+        warnings.warn(
+            "Apodization function not recognized. Using uniform apodization.")
+        return None
+    raise ValueError("Apodization must be a string or a function.")
+
+
+def _fbg_resolve_geometry(neff, v, landa_D, fc, kL, L, N, dneff, vdneff):
+    """Parameter-combination resolver (reference devices.py:2099-2176)."""
+    if fc:
+        if dneff:
+            if not (L or kL or N):
+                raise ValueError(
+                    "If `fc` and `dneff` are specified, `L`, `kL` or `N` "
+                    "must be specified.")
+            landa_D = 1 / (1 + dneff / neff) * c / fc
+            vdneff = dneff * v
+            if kL:
+                L = kL / (pi * dneff * v / landa_D)
+            elif N:
+                L = N * landa_D / (2 * neff)
+        elif vdneff:
+            if not (L or kL or N):
+                raise ValueError(
+                    "If `fc` and `vdneff` are specified, `L`, `kL` or `N` "
+                    "must be specified.")
+            landa_D = c / fc
+            dneff = 0
+            if kL:
+                L = kL / (pi * vdneff / landa_D)
+            elif N:
+                L = N * landa_D / (2 * neff)
+        else:
+            raise ValueError(
+                "If `fc` is specified, `dneff` or `vdneff` must be specified.")
+    elif landa_D:
+        if dneff:
+            if not (L or kL or N):
+                raise ValueError(
+                    "If `landa_D` and `dneff` are specified, `L`, `kL` or "
+                    "`N` must be specified.")
+            vdneff = dneff * v
+            if kL:
+                L = kL / (pi * vdneff / landa_D)
+            elif N:
+                L = N * landa_D / (2 * neff)
+        elif vdneff:
+            if not (L or kL or N):
+                raise ValueError(
+                    "If `landa_D` and `vdneff` are specified, `L`, `kL` or "
+                    "`N` must be specified.")
+            dneff = 0
+            if kL:
+                L = kL / (pi * vdneff / landa_D)
+            elif N:
+                L = N * landa_D / (2 * neff)
+        elif kL:
+            if not (L or N):
+                raise ValueError(
+                    "If `landa_D` and `kL` are specified, `L` or `N` must "
+                    "be specified.")
+            if N:
+                L = N * landa_D / (2 * neff)
+            vdneff = kL * landa_D / (pi * L)
+            dneff = vdneff / v
+        else:
+            raise ValueError(
+                "If `landa_D` is specified, `dneff`, 'vdneff' or `kL` must "
+                "be specified.")
+    else:
+        raise ValueError("Either `fc` or `landa_D` must be specified.")
+    return landa_D, L, dneff, vdneff
+
+
+def _fbg_steps(delta: np.ndarray, s: np.ndarray, k: np.ndarray, F) -> int:
+    """RK4 steps that resolve the fastest phase rotation of the coupled-mode
+    equations: ``|shat| <= |delta| + |s| + |F|/2`` a unit of z, at least
+    four steps a radian, 512 to 200,000 (the JAX device's rule)."""
+    rate = float(np.max(np.abs(delta) + np.abs(s)) + abs(F) / 2
+                 + np.max(np.abs(k)))
+    return int(min(max(512, 4 * rate), 200_000))
+
+
+def _fbg_grid(apo_func, n_steps: int, device) -> tuple:
+    """The RK4 step grid of :func:`ops.kernels.fbg_rk4` on ``device``:
+    ``(p0, p1, p2, zs)``, the apodization at the three stage positions and
+    the step starts ``1/2 - j/n_steps``, float32 as the JAX device makes
+    them (ones for a uniform grating)."""
+    dz = -1.0 / n_steps
+    zs_host = 0.5 + dz * np.arange(n_steps)
+    if apo_func is not None:
+        p = [np.asarray(apo_func(zs_host + off), dtype=np.float32)
+             for off in (0.0, dz / 2, dz)]
+    else:
+        p = [np.ones(n_steps, dtype=np.float32)] * 3
+    zs = np.asarray(zs_host, dtype=np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (*p, zs))
+
+
+def _fbg_rk4_inputs(lam: np.ndarray, neff, lam_D, L, dneff, vdneff,
+                    apodization, F, device) -> tuple:
+    """The arguments of :func:`ops.kernels.fbg_rk4` for a grating at the
+    wavelengths ``lam`` [m]: the detuning ``delta``, DC self-coupling ``s``
+    and AC coupling ``k`` of each bin (float64 on the host, then float32 on
+    ``device``), the chirp ``F``, the step grid of :func:`_fbg_grid` and
+    the step count of :func:`_fbg_steps`."""
+    delta = 2 * pi * neff * (1 / lam - 1 / lam_D) * L
+    s = 2 * pi * dneff / lam * L
+    k = pi * vdneff / lam * L
+    n_steps = _fbg_steps(delta, s, k, F)
+    coeff = (torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+             for a in (delta, s, k))
+    return (*coeff, F, *_fbg_grid(_fbg_apodization(apodization), n_steps,
+                                  device), n_steps)
+
+
+def _peak_widths(y: np.ndarray, peaks: np.ndarray) -> np.ndarray:
+    """``scipy.signal.peak_widths(y, peaks)[0]``, equal to it, without its
+    cost of O(peaks x n).
+
+    scipy finds each peak's prominence by scanning out to the nearest
+    higher sample on either side, to the end of the array if there is none.
+    At 2^24 bins the float32 round-off of the RK4 makes millions of local
+    maxima on the falling tails of |H|, and each scans to the end.  Here
+    every prominence is scipy's own, from windows of ``2w + 1`` samples
+    (``peak_prominences(wlen=)``) that double until it is settled: a side
+    whose window holds a higher sample (or reaches the end) has its true
+    minimum, and the prominence is the peak less the larger of the two
+    minima, so once one side is settled and the other side's window already
+    holds a sample as low, the rest of that side cannot change it.  The
+    widths at half prominence then stop at the first sample below that
+    height on either side, within the bases, as scipy's do."""
+    y = np.asarray(y, dtype=np.float64)
+    n = y.size
+    prom = np.empty(peaks.size)
+    todo = np.arange(peaks.size)
+    w = 16
+    while todo.size:
+        p = peaks[todo]
+        pw, lb, rb = sg.peak_prominences(y, p, wlen=2 * w + 1)
+        left, right = p - w <= 0, p + w >= n - 1
+        if w < n:
+            win = np.lib.stride_tricks.sliding_window_view(y, w)
+            i = ~left
+            left[i] = win[p[i] - w].max(axis=1) > y[p[i]]
+            i = ~right
+            right[i] = win[p[i] + 1].max(axis=1) > y[p[i]]
+        lmin, rmin = y[lb], y[rb]
+        done = ((left & right) | (left & (rmin <= lmin))
+                | (right & (lmin <= rmin)))
+        prom[todo[done]] = pw[done]
+        todo = todo[~done]
+        w *= 2
+    bases = (np.zeros(peaks.size, np.intp), np.full(peaks.size, n - 1, np.intp))
+    return sg.peak_widths(y, peaks, prominence_data=(prom, *bases))[0]
+
+
+def FBG(input: OpticalSignal, neff: float = 1.45, v: float = 1.0,
+        landa_D: Optional[float] = None, fc: Optional[float] = None,
+        kL: Optional[float] = None, L: Optional[float] = None,
+        N: Optional[int] = None, dneff: Optional[float] = None,
+        vdneff: Optional[float] = None,
+        apodization="uniform", F: float = 0,
+        print_params: bool = True, filtfilt: bool = True,
+        retH: bool = False):
+    """Fiber Bragg grating reflectivity via coupled-mode theory (reference
+    devices.py:1894-2322; the JAX device's parameters, rules, printed
+    design block and messages).
+
+    The grid (wavelengths, detuning ``delta``, self- and cross-coupling
+    ``s``, ``k``) is float64 on the host; the z-integration, fixed-step RK4
+    from ``z = 1/2`` to ``-1/2`` with the step count chosen from the
+    fastest phase rotation (:func:`_fbg_steps`), runs on the input's device
+    through the ``fbg_rk4`` kernel (its plain version on the CPU).
+    ``H = S/R``, the bandwidth (``find_peaks`` and the widest peak's width,
+    :func:`_peak_widths`: scipy's ``peak_widths`` in O(n log n)), the
+    dispersion at the centre and the group-delay removal (``filtfilt``)
+    are host NumPy, and the input is filtered by ``H`` on its device.
+
+    Parameters: ``neff``, ``v`` (effective index, fringe visibility);
+    ``landa_D`` or ``fc`` (design wavelength [m] or centre frequency [Hz]);
+    one of ``kL``, ``dneff``, ``vdneff`` (coupling); ``L`` or ``N`` (length
+    [m] or periods); ``apodization`` ('uniform' | 'rcos' | 'gaussian' |
+    'parabolic' or ``f(z)`` on z in [-1/2, 1/2]); ``F`` (linear chirp);
+    ``print_params``; ``filtfilt``; ``retH``: also return the fftshifted
+    response H (NumPy), as ``DM(retH=True)`` does.
+    """
+    tic()
+    if not isinstance(input, OpticalSignal):
+        raise TypeError("`input` must be of type 'optical_signal'.")
+
+    landa_D, L, dneff, vdneff = _fbg_resolve_geometry(
+        neff, v, landa_D, fc, kL, L, N, dneff, vdneff)
+
+    lam_D = landa_D
+    Lam = lam_D / (2 * neff)                    # grating period
+    lam_c = (1 + dneff / neff) * lam_D          # center wavelength
+    fc = c / lam_c
+
+    lam = 2 * pi * c / (input.w(shift=True) + 2 * pi * gv.f0)
+    dlam = lam[1] - lam[0]
+
+    N = int(L / Lam)
+    kL = pi / lam_D * vdneff * L
+
+    R, S = kernels.fbg_rk4(*_fbg_rk4_inputs(
+        lam, neff, lam_D, L, dneff, vdneff, apodization, F, input.device))
+
+    H = S.cpu().numpy() / R.cpu().numpy()
+    y = np.abs(H)
+    ic = int(np.argmin(np.abs(lam - c / fc)))
+
+    peaks, _ = sg.find_peaks(y)
+    H_max = y[ic]
+
+    if (y > 0.5).all():
+        warnings.warn(
+            "Bandwidth of the grating is too large for current sampling "
+            "rate (`fs`). Consider increasing `fs`.")
+        bw_str = f' - Δf = >{si(gv.fs, "Hz")} (Δλ = >{si(gv.fs * c / fc**2, "m")})'
+    elif len(peaks):
+        BW_lam = _peak_widths(y, peaks).max() * dlam
+        BW_f = fc**2 * BW_lam / c
+        bw_str = f' - Δf = {si(BW_f, "Hz")} (Δλ = {si(BW_lam, "m")})'
+    else:
+        warnings.warn("No peaks found in the reflectivity of the grating.")
+        bw_str = " - Δf = -- GHz (Δλ = -- nm)"
+
+    D = _dispersion_of(H, gv.fs, fc)[ic]
+
+    if print_params:
+        print("\n*** Fiber Bragg Grating Features ***")
+        print(f' - Λ = {si(Lam, "m")}')
+        print(f" - N = {N}")
+        print(f' - L = {si(L, "m")}')
+        print(f' - λc = {si(c / fc, "m", 4)}')
+        print(bw_str)
+        print(f" - ρo = {y.max():.2f}")
+        print(f" - loss = {-db(max(H_max, 1e-30)**2):.1f} dB")
+        print(f" - vδneff = {vdneff:.1e}")
+        print(f" - kL = {kL:.1f}")
+        print(f" - D(λc) = {D:.1f} ps/nm")
+        if F:
+            print(f" - F = {F:.1f}")
+            print(f' - ΔΛ = {si(np.abs(Lam * F / (2 * pi * N)), "m")}')
+        print("************************************\n")
+
+    if filtfilt:  # remove the bulk group delay so pulses stay centered
+        H = H * np.exp(-1j * input.w(shift=True) * _tau_g(H, gv.fs)[ic] * 1e-12)
+
+    H_fft = np.fft.ifftshift(H)
+    sig = _filtered(input.signal, H_fft)
+    noi = _filtered(input.noise, H_fft) if _has_noise(input.noise) else NULL
+    output = OpticalSignal(sig, noi, n_pol=input.n_pol)
+
+    output.execution_time = toc()
+    if retH:
+        return output, H
+    return output
+
+
+# ---------------------------------------------------------------------------
+# fiber propagation animation (reference devices.py:2326-2563)
+# ---------------------------------------------------------------------------
+def _trajectory_on_host(input, **fiber):
+    """``FIBER(..., return_steps=True)`` with the frames brought to the
+    host: ``(z, A_z)`` as NumPy arrays, a 2-pol trajectory summed over the
+    polarizations."""
+    z, A_z = FIBER(input, return_steps=True, **fiber)
+    A_z = A_z.cpu().numpy()
+    return z, (A_z if A_z.ndim == 2 else A_z.sum(axis=1))
+
+
+def animated_fiber_propagation(input: OpticalSignal, M: int, length: float,
+                               alpha: float = 0.0, beta_2: float = 0.0,
+                               beta_3: float = 0.0, gamma: float = 0.0,
+                               phi_max: float = 0.01,
+                               h: Optional[float] = None,
+                               interval: int = 100,
+                               show: bool = True):
+    """Matplotlib animation of |A(z, t)| along the fiber, built from the
+    trajectory of ``FIBER(return_steps=True)``."""
+    import matplotlib.pyplot as plt
+    from matplotlib.animation import FuncAnimation
+
+    z, A_z = _trajectory_on_host(input, length=length, alpha=alpha,
+                                 beta_2=beta_2, beta_3=beta_3, gamma=gamma,
+                                 phi_max=phi_max, h=h)
+    mag = np.abs(A_z)
+    t = gv.t * 1e9
+
+    fig, ax = plt.subplots()
+    (line,) = ax.plot(t, mag[0])
+    ax.set_xlabel("t [ns]")
+    ax.set_ylabel("|A(z,t)|")
+    ax.set_ylim(0, float(mag.max()) * 1.1)
+
+    def update(i):
+        line.set_ydata(mag[i])
+        ax.set_title(f"z = {z[i]:.2f} km")
+        return (line,)
+
+    anim = FuncAnimation(fig, update, frames=len(z), interval=interval,
+                         blit=False)
+    if show:
+        plt.show()
+    return anim
+
+
+def animated_fiber_propagation_with_phase(
+        input: OpticalSignal, length: float, alpha: float = 0.0,
+        beta_2: float = 0.0, beta_3: float = 0.0, gamma: float = 0.0,
+        phi_max: float = 0.05, h: Optional[float] = None,
+        interval: int = 100, show: bool = True):
+    """Animation of |A(z,t)|, instantaneous phase and chirp along the fiber
+    (reference devices.py:2461-2563).  The loss is compensated out of the
+    displayed field (``A * exp(alpha*z/2)``) so amplitude changes shown are
+    purely dispersive/nonlinear, and the phase is unwrapped and referenced
+    to the pulse center, as in the reference."""
+    import matplotlib.pyplot as plt
+    from matplotlib.animation import FuncAnimation
+
+    z, A_z = _trajectory_on_host(input, length=length, alpha=alpha,
+                                 beta_2=beta_2, beta_3=beta_3, gamma=gamma,
+                                 phi_max=phi_max, h=h)
+    alpha_lin = alpha / 4.342944819032518
+    A_z = A_z * np.exp(alpha_lin * z[:, None] / 2)  # undo loss for display
+
+    ic = int(np.argmax(np.abs(A_z[0])))
+    mag = np.abs(A_z)
+    ph = np.unwrap(np.angle(A_z), axis=-1)
+    ph = ph - ph[:, ic:ic + 1] + np.angle(A_z)[:, ic:ic + 1]
+    # instantaneous frequency deviation (chirp) [rad/ps]
+    om = -np.gradient(ph, gv.dt * 1e12, axis=-1)
+
+    t = gv.t * gv.R
+    t = t - t.max() / 2
+
+    fig, (ax1, ax2, ax3) = plt.subplots(3, 1, sharex=True, figsize=(8, 8))
+    (l1,) = ax1.plot(t, mag[0])
+    (l2,) = ax2.plot(t, ph[0])
+    (l3,) = ax3.plot(t, om[0])
+    ax1.set_ylabel("|A(z,t)|")
+    ax2.set_ylabel("phase [rad]")
+    ax3.set_ylabel("chirp [rad/ps]")
+    ax3.set_xlabel("t/T")
+    ax1.set_ylim(0, float(mag.max()) * 1.1)
+    ax2.set_ylim(float(ph.min()), float(ph.max()))
+    ax3.set_ylim(float(np.percentile(om, 1)), float(np.percentile(om, 99)))
+
+    def update(i):
+        l1.set_ydata(mag[i])
+        l2.set_ydata(ph[i])
+        l3.set_ydata(om[i])
+        ax1.set_title(f"z = {z[i]:.2f} km")
+        return l1, l2, l3
+
+    anim = FuncAnimation(fig, update, frames=len(z), interval=interval,
+                         blit=False)
+    if show:
+        plt.show()
+    return anim

@@ -41,6 +41,9 @@ ENTRY_POINTS = {
         "adc_link_launch": [_P, _P, _LL, _P, _P, _F, _P]},
     "fir_filter": {
         "fir_launch": [_P, _P, _P, _LL, _I, _P]},
+    "fbg_rk4": {
+        "fbg_rk4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
+                           _F, _P, _P, _LL, _P]},
 }
 RESTYPES = {"histogram_scratch_len": _LL}
 

@@ -1,13 +1,19 @@
-"""Eye-diagram metrology on the device (port of the device twin
-``opticomlib_tpu.ops.eyeana.eye_metrics_jax``; reference
-devices.py:1635-1868).
+"""Eye-diagram metrology (port of ``opticomlib_tpu.ops.eyeana``; reference
+devices.py:1635-1868), in two engines:
 
-Every stage is a tensor reduction with static shapes: subsets (level split,
-crossing band, centre window) are boolean masks, dynamic-size sorts are full
-sorts with +inf padding, and the KDE threshold is a fixed 4096-bin histogram
+* :func:`eye_metrics`, the tensor twin of the JAX package's device engine
+  ``eye_metrics_jax``, on the input's device;
+* :func:`eye_metrics_host`, the JAX package's NumPy ``eye_metrics`` (the
+  host engine of ``GET_EYE(engine="host")``) with its helpers
+  :func:`kmeans2_1d`, :func:`kmeans2_2d` and :func:`kde_min_threshold`.
+
+In the tensor engine every stage is a tensor reduction with static shapes:
+subsets (level split, crossing band, centre window) are boolean masks,
+dynamic-size sorts are full sorts with +inf padding, and the KDE threshold
+is a fixed 4096-bin histogram
 (:func:`opticomlib_tpu_torch.ops.kernels.histogram_rows`) contracted against
-a Gaussian kernel matrix.  Nothing here reads back to the host, so the whole
-receiver queues behind the link on the card.
+a Gaussian kernel matrix.  Nothing there reads back to the host, so the
+whole receiver queues behind the link on the card.
 
 A ``(C, n)`` input is ``C`` independent channels (the JAX package's ``vmap``
 over ``eye_metrics_jax``): stages 1-6 run channel by channel on the rows, so
@@ -25,10 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.analysis import _host, shortest_int
 from . import kernels
 from .pulses import resample_fft
 
-__all__ = ["eye_metrics", "eye_window", "shortest_int_hist", "linspace"]
+__all__ = ["kmeans2_1d", "kmeans2_2d", "kde_min_threshold", "eye_metrics",
+           "eye_metrics_host", "eye_window", "shortest_int_hist", "linspace"]
 
 #: relative flatness tolerance of the KDE plateau diagnostic (same value as
 #: ``opticomlib_tpu.ops.eyeana.PLATEAU_TOL``)
@@ -246,7 +254,9 @@ def eye_window(n: int, sps: int, nslots: int) -> int:
 def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
                 sps_resamp: Optional[int] = None) -> dict:
     """Blind eye metrology of a sampled waveform (8-stage pipeline of the
-    reference GET_EYE).  Returns a dict of 0-d tensors plus the traces
+    reference GET_EYE): the counterpart of the JAX package's device engine
+    ``eye_metrics_jax`` (:func:`eye_metrics_host` is that of its NumPy
+    ``eye_metrics``).  Returns a dict of 0-d tensors plus the traces
     ``t``/``y``/``y_top``/``y_bot``/``y_25_75``, all on the input's
     device.  A ``(C, n)`` input is ``C`` channels: every tensor of the
     result gains a leading channel axis, and row ``c`` equals the 1-D call
@@ -376,4 +386,240 @@ def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
     out["s0"] = s0 = _masked_std(y, bot_sel)
 
     out["_kde"] = (y, window, mu0, mu1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the host engine: NumPy, copied from the JAX package's ``eye_metrics``
+# ---------------------------------------------------------------------------
+def kmeans2_1d(y: np.ndarray, iters: int = 32):
+    """Two-cluster Lloyd's algorithm on scalars.
+
+    Deterministic initialization at the 10/90 percentiles; for bimodal eye
+    amplitude data this converges to the same partition as sklearn's
+    multi-restart KMeans (which the reference uses at devices.py:1757-1760).
+    Returns (c0, c1) cluster centers, c0 <= c1.
+    """
+    y = np.asarray(_host(y), dtype=np.float64).ravel()
+    c0, c1 = np.quantile(y, 0.1), np.quantile(y, 0.9)
+    if c0 == c1:
+        return c0, c1
+    for _ in range(iters):
+        mid = 0.5 * (c0 + c1)
+        lo = y <= mid
+        n_lo = lo.sum()
+        if n_lo == 0 or n_lo == y.size:
+            break
+        c0n = y[lo].mean()
+        c1n = y[~lo].mean()
+        if c0n == c0 and c1n == c1:
+            break
+        c0, c1 = c0n, c1n
+    return float(c0), float(c1)
+
+
+def kmeans2_2d(pts: np.ndarray, init: np.ndarray, iters: int = 32):
+    """Two-cluster Lloyd's algorithm in 2-D (used on the (t, y) crossing
+    band, reference devices.py:1782-1798).  Returns (2, 2) centers."""
+    pts = np.asarray(_host(pts), dtype=np.float64)
+    centers = np.asarray(_host(init), dtype=np.float64).copy()
+    for _ in range(iters):
+        d = ((pts[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+        lab = d.argmin(1)
+        new = centers.copy()
+        for k in (0, 1):
+            sel = lab == k
+            if sel.any():
+                new[k] = pts[sel].mean(0)
+        if np.allclose(new, centers):
+            break
+        centers = new
+    return centers
+
+
+def _plateau_width_np(grid: np.ndarray, pdf: np.ndarray) -> float:
+    rng = pdf.max() - pdf.min()
+    flat = pdf <= pdf.min() + PLATEAU_TOL * max(rng, 1e-300)
+    dg = grid[1] - grid[0] if grid.size > 1 else 0.0
+    return float(flat.sum() * abs(dg))
+
+
+def kde_min_threshold(y: np.ndarray, mu0: float, mu1: float,
+                      npts: int = 500, nbins: int = 4096,
+                      return_plateau: bool = False):
+    """Decision threshold at the minimum of the amplitude density between
+    the two levels (reference devices.py:1852-1859).
+
+    Bandwidth: Scott's rule ``n**(-1/5) * std(y)``, the default of
+    ``scipy.stats.gaussian_kde``.  The density is a fine histogram convolved
+    with the Gaussian kernel (the argmin of the exact KDE up to the bin
+    width).  ``return_plateau=True`` also returns the width of the flat
+    density region around the minimum (see :data:`PLATEAU_TOL`).
+    """
+    y = np.asarray(_host(y), dtype=np.float64).ravel()
+    bad = (y.size < 2 or not np.all(np.isfinite([mu0, mu1]))
+           or mu0 == mu1)
+    bw = y.std() * y.size ** (-1 / 5) if not bad else 0.0
+    if bad or bw <= 0:
+        return (None, None) if return_plateau else None
+
+    lo_g, hi_g = min(mu0, mu1), max(mu0, mu1)
+    lo = min(y.min(), lo_g) - 5 * bw
+    hi = max(y.max(), hi_g) + 5 * bw
+    hist, edges = np.histogram(y, bins=nbins, range=(lo, hi))
+    centers = 0.5 * (edges[:-1] + edges[1:])
+    db_ = edges[1] - edges[0]
+
+    # Gaussian smoothing of the histogram = KDE sampled at bin centers
+    half = int(np.ceil(5 * bw / db_))
+    k = np.exp(-0.5 * (np.arange(-half, half + 1) * db_ / bw) ** 2)
+    pdf_bins = np.convolve(hist.astype(np.float64), k, mode="same")
+
+    grid = np.linspace(mu0, mu1, npts)
+    pdf = np.interp(grid, centers, pdf_bins)
+    thr = float(grid[int(pdf.argmin())])
+    if return_plateau:
+        return thr, _plateau_width_np(grid, pdf)
+    return thr
+
+
+def _find_nearest(levels: np.ndarray, value):
+    levels = np.asarray(levels)
+    return levels[np.abs(levels - value).argmin()]
+
+
+def eye_metrics_host(input_samples, sps: int, nslots: int = 4096,
+                     sps_resamp: Optional[int] = None) -> dict:
+    """The host engine: the JAX package's NumPy ``eye_metrics`` (the
+    counterpart of the JAX host engine; :func:`eye_metrics` is that of
+    ``eye_metrics_jax``).  ``input_samples``: an array or a tensor on any
+    device, taken to the host in float64.  Returns a dict of Python
+    numbers and NumPy traces.
+
+    Mirrors the reference pipeline step by step
+    (reference devices.py:1635-1868):
+
+    1.  truncate to a multiple of ``2*sps`` slots, cap at ``nslots``, roll by
+        ``-sps//2 + 1`` to center the eye;
+    2.  optional FFT resampling to ``sps_resamp`` samples/slot;
+    3.  2-means split of the amplitudes -> inter-level midpoint ``vm``;
+    4.  shortest-50%-interval means above/below ``vm`` -> level LMS
+        estimates ``state_1`` / ``state_0``;
+    5.  25-75% crossing band -> 2-means on (t, y) -> ``t_left``/``t_right``/
+        ``t_opt``;
+    6.  +-5%-of-eye-width window at ``t_opt`` -> ``mu0/mu1/s0/s1``;
+    7.  KDE minimum between the levels -> ``threshold``;
+    8.  extinction ratio and eye height.
+    """
+    y_in = np.asarray(_host(input_samples)).real.astype(np.float64).ravel()
+    out: dict = {"sps": sps}
+
+    # 1. truncation and centering (devices.py:1731-1740)
+    rem = y_in.size % (2 * sps)
+    if rem:
+        y_in = y_in[:-rem]
+    # traces fold two slots each, so the slot count must be even (an odd
+    # user nslots would make t one slot shorter than y)
+    nslots = min(int(y_in.size // sps), int(nslots)) // 2 * 2
+    y_in = y_in[: nslots * sps]
+    y_in = np.roll(y_in, -sps // 2 + 1)
+    y_set = np.unique(y_in)
+
+    # 2. optional resampling (devices.py:1744-1751)
+    if sps_resamp:
+        y = resample_fft(torch.from_numpy(y_in),
+                         nslots * sps_resamp).numpy().astype(np.float64)
+        out["sps_resamp"] = sps_resamp
+        t = np.kron(np.ones(nslots // 2),
+                    np.linspace(-1, 1 - 1 / sps_resamp, 2 * sps_resamp))
+    else:
+        y = y_in
+        t = np.kron(np.ones(nslots // 2),
+                    np.linspace(-1, 1 - 1 / sps, 2 * sps))
+    out["y"] = y
+    out["t"] = t
+
+    # 3. amplitude bi-level split (devices.py:1757-1760)
+    c0, c1 = kmeans2_1d(y)
+    vm = 0.5 * (c0 + c1)
+
+    # 4. level estimates (devices.py:1763-1769)
+    top = y[y > vm]
+    bot = y[y < vm]
+    out["top_int"] = top_int = (shortest_int(top, 50) if top.size > 2
+                                else np.array([vm, vm]))
+    out["bot_int"] = bot_int = (shortest_int(bot, 50) if bot.size > 2
+                                else np.array([vm, vm]))
+    state_1 = float(np.mean(top_int))
+    state_0 = float(np.mean(bot_int))
+    d01 = state_1 - state_0
+    v75 = state_1 - 0.25 * d01
+    v25 = state_0 + 0.25 * d01
+    t_set = np.unique(t)
+
+    # 5. crossing times (devices.py:1782-1798)
+    cond = (y > v25) & (y < v75)
+    try:
+        if cond.sum() < 2:
+            raise ValueError("no crossing samples")
+        ty = np.stack([t[cond], y[cond]], axis=1)
+        init = np.array([[t.min(), 0.5 * (state_0 + state_1)],
+                         [t.max(), 0.5 * (state_0 + state_1)]])
+        ty_c = kmeans2_2d(ty, init)
+        left = int(ty_c[:, 0].argmin())
+        right = int(ty_c[:, 0].argmax())
+        out["t_left"] = t_left = float(_find_nearest(t_set, ty_c[left, 0]))
+        out["t_right"] = t_right = float(_find_nearest(t_set, ty_c[right, 0]))
+        out["t_opt"] = t_center = float(_find_nearest(t_set, ty_c[:, 0].mean()))
+        out["y_left"] = float(_find_nearest(y_set, ty_c[left, 1]))
+        out["y_right"] = float(_find_nearest(y_set, ty_c[right, 1]))
+        y_25_75 = y.copy()
+        y_25_75[~cond] = np.nan
+        out["y_25_75"] = y_25_75
+    except ValueError:
+        out["t_left"] = t_left = -0.5
+        out["t_right"] = t_right = 0.5
+        out["t_opt"] = t_center = 0.0
+        out["y_left"] = None
+        out["y_right"] = None
+
+    # 6. center-window statistics (devices.py:1800-1849)
+    out["t_dist"] = t_dist = t_right - t_left
+    out["t_span0"] = t_span0 = t_center - 0.05 * t_dist
+    out["t_span1"] = t_span1 = t_center + 0.05 * t_dist
+    y_center = _find_nearest(y_set, 0.5 * (state_0 + state_1))
+
+    if sps_resamp:
+        instant = int(np.abs(t - t_center).argmin()) - sps_resamp // 2 + 1
+        instant = int(instant / sps_resamp * sps)
+    else:
+        instant = int(np.abs(t - t_center).argmin()) - sps // 2 + 1
+    out["i"] = instant
+
+    window = (t_span0 < t) & (t < t_span1)
+    top_sel = (y > y_center) & window
+    bot_sel = (y < y_center) & window
+
+    y_top = np.where(top_sel, y, np.nan)
+    y_bot = np.where(bot_sel, y, np.nan)
+    out["y_top"] = y_top
+    out["y_bot"] = y_bot
+
+    out["mu1"] = mu1 = float(np.nanmean(y_top)) if top_sel.any() else np.nan
+    out["s1"] = s1 = float(np.nanstd(y_top)) if top_sel.any() else np.nan
+    out["mu0"] = mu0 = float(np.nanmean(y_bot)) if bot_sel.any() else np.nan
+    out["s0"] = s0 = float(np.nanstd(y_bot)) if bot_sel.any() else np.nan
+
+    # 7. KDE threshold (devices.py:1852-1859) + plateau-width diagnostic
+    y_win = y[window]
+    thr, plateau = (kde_min_threshold(y_win, mu0, mu1,
+                                      return_plateau=True)
+                    if np.isfinite([mu0, mu1]).all() else (None, None))
+    out["threshold"] = thr
+    out["threshold_plateau"] = plateau
+
+    # 8. ER and eye opening (devices.py:1862-1865)
+    out["er"] = (10 * np.log10(mu1 / mu0) if mu0 > 0
+                 else np.inf if mu0 == 0 else np.nan)
+    out["eye_h"] = mu1 - 3 * s1 - mu0 - 3 * s0
     return out

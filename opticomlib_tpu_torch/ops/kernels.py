@@ -11,6 +11,7 @@ cmul          CUDA C++, csrc/*.cu       pallas_kernels._cmul_kernel
 histogram2d   CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
 adc_quantize  CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
 fir_filter    CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
+fbg_rk4       CUDA C++, csrc/*.cu       devices._fbg_rk4 (a lax.scan)
 ============  ========================  ===============================
 
 ``histogram2d`` has two wrappers over one kernel family: the table of index
@@ -43,12 +44,12 @@ __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
            "histogram2d", "histogram2d_ref", "histogram_rows",
            "histogram_rows_ref", "HIST_MAX_ROWS", "adc_quantize",
            "adc_quantize_ref", "adc_quantize_link", "adc_quantize_link_ref",
-           "fir_filter", "fir_filter_ref", "FIR_MAX_TAPS", "LAUNCHES",
-           "reset_launches"]
+           "fir_filter", "fir_filter_ref", "FIR_MAX_TAPS", "fbg_rk4",
+           "fbg_rk4_ref", "LAUNCHES", "reset_launches"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "histogram2d": 0, "adc_quantize": 0,
-            "fir_filter": 0}
+            "fir_filter": 0, "fbg_rk4": 0}
 
 
 def reset_launches() -> None:
@@ -451,3 +452,101 @@ def fir_filter(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         _build.check(lib, err, "fir_filter")
         LAUNCHES["fir_filter"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# fiber Bragg grating: coupled-mode RK4
+# ---------------------------------------------------------------------------
+def _fbg_args(delta, s, k, p0, p1, p2, zs, n_steps: int) -> int:
+    for name, t in (("delta", delta), ("s", s), ("k", k), ("p0", p0),
+                    ("p1", p1), ("p2", p2), ("zs", zs)):
+        _check(t, name, torch.float32)
+        if t.ndim != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+    if not delta.shape == s.shape == k.shape:
+        raise ValueError(
+            f"delta, s and k must have one length, got {tuple(delta.shape)}, "
+            f"{tuple(s.shape)} and {tuple(k.shape)}")
+    n_steps = int(n_steps)
+    if n_steps < 1 or any(t.numel() != n_steps for t in (p0, p1, p2, zs)):
+        raise ValueError(f"p0, p1, p2 and zs must hold n_steps = {n_steps} "
+                         f"values")
+    return n_steps
+
+
+def _fbg_chirp(F, zs: torch.Tensor, n_steps: int) -> tuple:
+    """The chirp terms of each RK4 step, the same for every bin: ``F*z``,
+    ``F*(z + dz/2)`` and ``F*(z + dz)``, float32 on ``zs``'s device, rounded
+    as the JAX scan rounds them (``dz/2`` and ``dz`` rounded once, then a
+    float32 sum and product)."""
+    dz = -1.0 / n_steps
+    F32 = float(np.float32(F))
+    return tuple(F32 * (zs + float(np.float32(off)))
+                 for off in (0.0, dz / 2, dz))
+
+
+def fbg_rk4_ref(delta, s, k, F, p0, p1, p2, zs, n_steps: int) -> tuple:
+    """Plain version: the JAX package's scan body (``devices._fbg_rk4``) as
+    a loop of complex64 tensor operations, with its float32 constants
+    (``dz/2``, ``dz/6`` and the chirp terms of :func:`_fbg_chirp`)."""
+    n_steps = _fbg_args(delta, s, k, p0, p1, p2, zs, n_steps)
+    dz = -1.0 / n_steps
+    delta, s, k = (t.to(torch.complex64) for t in (delta, s, k))
+    grid = zip(*(t.cpu().tolist()
+                 for t in (*_fbg_chirp(F, zs, n_steps), p0, p1, p2)))
+
+    def deriv(R, S, Fz, p):
+        shat = delta + s * p - Fz
+        kk = k * p
+        return 1j * (shat * R + kk * S), -1j * (shat * S + kk * R)
+
+    R = torch.ones_like(delta)
+    S = torch.zeros_like(delta)
+    for Fa, Fb, Fc, pa, pb, pc in grid:
+        k1R, k1S = deriv(R, S, Fa, pa)
+        k2R, k2S = deriv(R + dz / 2 * k1R, S + dz / 2 * k1S, Fb, pb)
+        k3R, k3S = deriv(R + dz / 2 * k2R, S + dz / 2 * k2S, Fb, pb)
+        k4R, k4S = deriv(R + dz * k3R, S + dz * k3S, Fc, pc)
+        R = R + dz / 6 * (k1R + 2 * k2R + 2 * k3R + k4R)
+        S = S + dz / 6 * (k1S + 2 * k2S + 2 * k3S + k4S)
+    return R, S
+
+
+def fbg_rk4(delta: torch.Tensor, s: torch.Tensor, k: torch.Tensor, F,
+            p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+            zs: torch.Tensor, n_steps: int) -> tuple:
+    """Coupled-mode equations of a fiber Bragg grating, ``R' = i(shat R +
+    kk S)``, ``S' = -i(shat S + kk R)`` with ``shat = delta + s p - F z``
+    and ``kk = k p``, integrated from ``z = 1/2`` to ``-1/2`` by ``n_steps``
+    fixed RK4 steps from ``R = 1, S = 0``, every frequency bin at once: the
+    function of the JAX package's ``devices._fbg_rk4``.
+
+    ``delta``, ``s``, ``k``: the detuning, DC self-coupling and AC coupling
+    of each bin, real, float32 ``(n,)``; ``F``: the chirp; ``zs``: the
+    step starts and ``p0``, ``p1``, ``p2``: the apodization at ``z``,
+    ``z + dz/2`` and ``z + dz``, float32 ``(n_steps,)``, on the device of
+    ``delta``.  Returns ``(R, S)``, complex64 ``(n,)``; the reflection
+    response is ``S/R``."""
+    n_steps = _fbg_args(delta, s, k, p0, p1, p2, zs, n_steps)
+    if not _on_cuda(delta, s, k, p0, p1, p2, zs):
+        return fbg_rk4_ref(delta, s, k, F, p0, p1, p2, zs, n_steps)
+    from . import _build
+    lib = _build.load_library("fbg_rk4")
+    R = torch.empty(delta.shape, dtype=torch.complex64, device=delta.device)
+    S = torch.empty_like(R)
+    dz = -1.0 / n_steps
+    if delta.numel():
+        with torch.cuda.device(delta.device):
+            fa, fb, fc = _fbg_chirp(F, zs, n_steps)
+            err = lib.fbg_rk4_launch(
+                *(ctypes.c_void_p(t.data_ptr())
+                  for t in (delta, s, k, p0, p1, p2, fa, fb, fc)),
+                ctypes.c_int(n_steps), ctypes.c_float(np.float32(dz)),
+                ctypes.c_float(np.float32(dz / 2)),
+                ctypes.c_float(np.float32(dz / 6)),
+                ctypes.c_void_p(R.data_ptr()), ctypes.c_void_p(S.data_ptr()),
+                ctypes.c_longlong(delta.numel()),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(lib, err, "fbg_rk4")
+        LAUNCHES["fbg_rk4"] += 1
+    return R, S

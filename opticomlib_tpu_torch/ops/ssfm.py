@@ -36,6 +36,14 @@ The staged wrappers (:func:`ssfm_propagate`, :func:`ssfm_scan_o4`,
 runs) take a complex field tensor and the angular-frequency axis, and
 return ``(A, n_steps)``: the complex64 field on ``A``'s device and the
 number of steps taken (attempted, for the step-doubling schemes).
+``ssfm_propagate(return_steps=True)`` returns the trajectory instead.
+
+Progress: the reference loops tick the progress handler once a step, and
+a tick is a no-op while none is installed; :class:`progress_bar` installs
+a tqdm bar as the handler (``FIBER(show_progress=True)``).  The loops
+already run on the host, so a tick reads the host's ``z`` and adds no
+device sync.  (The JAX loops take a ``progress`` flag instead, because
+their tick is a callback compiled into the program.)
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ import torch
 from . import kernels
 
 __all__ = ["linear_operator", "dispersion_phase", "alpha_per_km",
-           "adaptive_h0",
+           "adaptive_h0", "dispersive_step", "progress_bar",
            "ssfm_step_schedule", "max_power", "ssfm_while_inside",
            "ssfm_scan_inside", "ssfm_o4_scan_inside", "ssfm_o4_auto_inside",
            "ssfm_local_error_inside", "ssfm_propagate", "ssfm_scan_o4",
@@ -57,6 +65,50 @@ _LOG10E_X10 = 4.342944819032518  # 10*log10(e): dB/km -> 1/km divisor
 _MAX_STEPS = 400_000  # runaway backstop, as in the JAX loop
 
 f32 = np.float32
+
+
+# ----------------------------------------------------------------------
+# progress reporting (reference devices.py:1164-1170 tqdm bar)
+# ----------------------------------------------------------------------
+_progress_handler = None
+
+
+def _progress_tick(z, length) -> None:
+    if _progress_handler is not None:
+        _progress_handler(float(z), float(length))
+
+
+class progress_bar:
+    """Context manager installing a tqdm progress handler for the
+    reference loops (used by ``FIBER(show_progress=True)``).
+    ``tqdm`` is imported on entry."""
+
+    def __enter__(self):
+        global _progress_handler
+        from tqdm import tqdm
+        self._bar = tqdm(total=100.0, unit="%",
+                         bar_format="{l_bar}{bar}| {n:.1f}/{total}% "
+                                    "[{elapsed}, {postfix}]")
+        self._bar.set_postfix(step=0)
+        self._n = 0
+
+        def update(z, length):
+            self._n += 1
+            pct = min(100.0, 100.0 * z / max(length, 1e-30))
+            self._bar.n = round(pct, 1)
+            self._bar.set_postfix(step=self._n)
+            self._bar.refresh()
+
+        _progress_handler = update
+        return self
+
+    def __exit__(self, *exc):
+        global _progress_handler
+        _progress_handler = None
+        self._bar.n = self._bar.total
+        self._bar.refresh()
+        self._bar.close()
+        return False
 
 
 def linear_operator(w_rad_s: np.ndarray, alpha_db_km: float, beta2: float,
@@ -152,7 +204,8 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
     single-FFT linear substep (the pencil or overlap-save transform of the
     sharded solver; ``phi_w`` may then be ``None``).  ``h_max``: a hard cap
     on the adaptive step (the overlap-save solver caps ``h`` at the size its
-    halo was derived for).  Returns ``(A, n_steps)``."""
+    halo was derived for).  Ticks the progress handler after each step.
+    Returns ``(A, n_steps)``."""
     alpha, length, gamma = f32(alpha), f32(length), f32(gamma)
     phi_max, h0 = f32(phi_max), f32(h0)
     # minimum step: float32 z-accumulation stalls when h < ulp(z)
@@ -176,6 +229,7 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
                 h_next = min(h_next, f32(h_max))
             h = max(min(h_next, length - z), h_floor)
             steps += 1
+            _progress_tick(z, length)
     return A, steps
 
 
@@ -184,13 +238,16 @@ def ssfm_scan_inside(A: torch.Tensor, phi_w: torch.Tensor, hs, gamma,
     """Fixed-schedule propagation over the float32 step sizes ``hs``.  The
     linear factor of the leading step size is built once; an off-schedule
     step (the final remainder) builds its own.  ``spectral``: see
-    :func:`_strang_step`."""
+    :func:`_strang_step`.  Ticks the progress handler after each step."""
     alpha, gamma = f32(alpha), f32(gamma)
     hs = np.asarray(hs, dtype=np.float32)
     E0 = _lin_factor(phi_w, alpha, hs[0])
+    z, length = f32(0.0), hs.sum(dtype=np.float32)
     for h in hs:
         E = E0 if h == hs[0] else None
         A = _nl_l_nl_step(A, phi_w, alpha, h, gamma, E=E, spectral=spectral)
+        z = z + h
+        _progress_tick(z, length)
     return A
 
 
@@ -359,6 +416,15 @@ def ssfm_local_error_inside(A: torch.Tensor, phi_w: torch.Tensor, length,
 # ----------------------------------------------------------------------
 # staged wrappers (ops/ssfm.py:538-741 of the JAX package)
 # ----------------------------------------------------------------------
+def dispersive_step(A: torch.Tensor, D, h) -> torch.Tensor:
+    """Pure linear step: ``ifft(fft(A) * exp(D*h))`` along the last axis,
+    ``D`` the linear operator (:func:`linear_operator`; a NumPy array or a
+    tensor) on ``A``'s device (reference devices.py:1027-1029 and 1156)."""
+    D = torch.as_tensor(D, device=A.device)
+    return torch.fft.ifft(torch.fft.fft(A, dim=-1) * torch.exp(D * h),
+                          dim=-1)
+
+
 def _prepare(A: torch.Tensor, w_rad_s, beta_2, beta_3):
     A = A.to(torch.complex64).contiguous()
     phi_w = torch.as_tensor(dispersion_phase(w_rad_s, beta_2, beta_3),
@@ -369,11 +435,17 @@ def _prepare(A: torch.Tensor, w_rad_s, beta_2, beta_3):
 def ssfm_propagate(A: torch.Tensor, w_rad_s, length: float,
                    alpha: float = 0.0, beta_2: float = 0.0,
                    beta_3: float = 0.0, gamma: float = 0.0,
-                   phi_max: float = 0.01, h=None):
+                   phi_max: float = 0.01, h=None, return_steps: bool = False):
     """Propagate the field ``A`` (complex, last axis = time) through
     ``length`` km of fiber with the reference scheme (reference
     devices.py:1038-1206): fixed steps of ``h``, or ``phi_max``-adaptive
-    from the input's peak power.
+    from the input's peak power, ticking the progress handler
+    (:class:`progress_bar`) once a step.
+
+    ``return_steps=True`` returns the trajectory ``(z, A_z)`` instead of
+    ``(A, n_steps)`` (:func:`_ssfm_trajectory`): ``z`` a float64 NumPy
+    array of the positions [km], from 0, and ``A_z`` the field at each,
+    complex64 frames stacked on ``A``'s device.
 
     NOTE reference parity quirk (devices.py:1154-1160), kept: a
     dispersion-free span, or ``gamma == 0``, takes ONE full-span step when
@@ -381,6 +453,9 @@ def ssfm_propagate(A: torch.Tensor, w_rad_s, length: float,
     A, phi_w = _prepare(A, w_rad_s, beta_2, beta_3)
     a_km = alpha_per_km(alpha)
     linear_only = (beta_2 == 0 and beta_3 == 0) or gamma == 0
+    if return_steps:
+        return _ssfm_trajectory(A, phi_w, a_km, length, gamma, phi_max, h,
+                                linear_only)
     if h is not None or linear_only:
         hs = (ssfm_step_schedule(length, h) if h is not None
               else np.asarray([length], dtype=np.float32))
@@ -388,6 +463,47 @@ def ssfm_propagate(A: torch.Tensor, w_rad_s, length: float,
     h0 = adaptive_h0(phi_max, gamma, float(max_power(A)), length)
     return ssfm_while_inside(A, phi_w, length, gamma, phi_max, h0, a_km,
                              adaptive=True)
+
+
+def _max_power64(A: torch.Tensor) -> float:
+    """``max(re^2 + im^2)`` of a complex64 field in float64 (what the JAX
+    trajectory reads off its complex128 host frames)."""
+    return float(torch.view_as_real(A).double().square().sum(-1).max())
+
+
+def _ssfm_trajectory(A: torch.Tensor, phi_w: torch.Tensor, a_km, length,
+                     gamma, phi_max, h, linear_only):
+    """Host-stepped propagation that keeps every step's field: the
+    trajectory of ``return_steps`` (reference devices.py:1149-1202; the JAX
+    package's ``ops.ssfm._ssfm_trajectory``).
+
+    The step grid is the JAX package's, in float64 on the host: the first
+    step from :func:`adaptive_h0` on the input's peak power (float32, as
+    JAX reads it off the complex64 input), each later one from
+    ``adaptive_h0(..., inf)`` on the last frame's peak power (float64),
+    every step clipped to what is left of the span; ``h`` given: fixed
+    steps; ``linear_only``: one step.  Each step is one :func:`_nl_l_nl_step`
+    (the ``nl_halfstep`` and ``cmul`` kernels on a card).  Returns ``(z,
+    A_z)`` as :func:`ssfm_propagate` describes."""
+    alpha, g = f32(a_km), f32(gamma)
+    z, zs, frames = 0.0, [0.0], [A]
+    if linear_only and h is None:
+        h_ = float(length)
+    elif h is None:
+        h_ = adaptive_h0(phi_max, gamma, float(max_power(A)), length)
+    else:
+        h_ = min(float(h), length)
+    while z < length:
+        z += h_
+        A = _nl_l_nl_step(A, phi_w, alpha, f32(h_), g)
+        zs.append(z)
+        frames.append(A)
+        if h is None and not linear_only:
+            h_ = adaptive_h0(phi_max, gamma, _max_power64(A), float("inf"))
+        h_ = min(h_, length - z)
+        if h_ <= 0:
+            break
+    return np.asarray(zs), torch.stack(frames)
 
 
 def ssfm_scan_o4(A: torch.Tensor, w_rad_s, length: float, alpha=0.0,

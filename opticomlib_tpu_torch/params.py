@@ -260,8 +260,15 @@ class GlobalVariables:
                                wavelength=wavelength, base=self.params)
         n_slots = int(N) if N is not None else self.params.N
         object.__setattr__(self, "params", new.replace(N=n_slots))
-        # plotting is not ported: plt_style is only recorded
-        self.plt_style = plt_style
+        if plt_style != self.plt_style:
+            self.plt_style = plt_style
+            try:  # matplotlib is optional in the compute path
+                import matplotlib.pyplot as plt
+
+                plt.rcdefaults()
+                plt.style.use(plt_style)
+            except Exception:
+                pass
 
         if "device" in kwargs:
             check_device(kwargs["device"])

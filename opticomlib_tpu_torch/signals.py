@@ -29,9 +29,16 @@ analytically (reference devices.py:1460-1479).
 Type promotion follows NumPy's: operands from host data are wrapped as 1-D
 tensors, so ``complex64 * float64`` gives ``complex128`` as it does for two
 NumPy arrays, and a Python scalar divisor keeps the signal's precision as
-NumPy 2 keeps it.  The NumPy ufunc/function protocols of the JAX classes
-and plotting are not ported: ``__array_ufunc__ = None`` makes NumPy hand
-binary operators back to these classes, and other ufuncs raise.
+NumPy 2 keeps it.
+
+NumPy protocol (reference typing.py:518-692, 1224-1306): ``np.add``,
+``np.subtract`` and ``np.multiply`` keep the classes' algebra (sequence
+concatenation and repetition; the signal/noise bilinear algebra) whichever
+side the object is on; other ufuncs and NumPy functions act on the bits or
+on ``signal + noise`` (a host copy) and re-wrap shape-compatible results,
+a signal's on the operand's device.  Drawing (``plot``, ``psd``,
+``plot_eye``, ``grid``, ``legend``, ``show``) is host Matplotlib, imported
+when called.
 """
 from __future__ import annotations
 
@@ -228,6 +235,25 @@ class BinarySequence:
         raise AttributeError(
             f"'{type(self).__name__}' object has no attribute '{name}'")
 
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        """np.add/np.multiply keep sequence semantics (concatenate/tile)
+        whichever side the sequence is on; other ufuncs apply to the bits
+        and re-wrap binary results (reference typing.py:600-645)."""
+        out = _operator(BinarySequence, _SEQUENCE_OPS, ufunc, method, inputs,
+                        kwargs)
+        if out is not None:
+            return out
+        new_inputs = [inp.__array__() if isinstance(inp, BinarySequence)
+                      else inp for inp in inputs]
+        return _rewrap_bits(getattr(ufunc, method)(*new_inputs, **kwargs))
+
+    def __array_function__(self, func, types, args, kwargs):
+        """Higher-level NumPy functions (np.concatenate, np.roll, ...)
+        apply to the bits and re-wrap binary results
+        (reference typing.py:647-692)."""
+        return _rewrap_bits(func(*_to_arrays(args, BinarySequence),
+                                 **_to_arrays(kwargs, BinarySequence)))
+
     def to_numpy(self, dtype=None):
         return np.asarray(self.data, dtype=dtype)
 
@@ -353,6 +379,58 @@ class BinarySequence:
         bits, _ = _prbs(order, length=len, seed=seed)
         return BinarySequence(bits)
 
+    def plot(self, *args, **kwargs):
+        import matplotlib.pyplot as plt
+        n = kwargs.pop("n", self.size)
+        plt.step(np.arange(n), self.data[:n], *args, where="post", **kwargs)
+        return self
+
+    def show(self):
+        import matplotlib.pyplot as plt
+        plt.show()
+        return self
+
+
+_SEQUENCE_OPS = {np.add: ("__add__", "__radd__"),
+                 np.multiply: ("__mul__", "__rmul__")}
+_SIGNAL_OPS = {**_SEQUENCE_OPS, np.subtract: ("__sub__", "__rsub__")}
+
+
+def _operator(cls, ops, ufunc, method, inputs, kwargs):
+    """A ufunc of ``ops`` called on two operands, one of them a ``cls``, as
+    that class's operator (``np.add(a, x)`` is ``x.__radd__(a)``); None for
+    any other call."""
+    if method != "__call__" or kwargs.get("out") or ufunc not in ops:
+        return None
+    fwd, rev = ops[ufunc]
+    lhs, rhs = inputs
+    if isinstance(lhs, cls):
+        return getattr(lhs, fwd)(rhs)
+    return getattr(rhs, rev)(lhs)
+
+
+def _to_arrays(obj, cls):
+    """``obj`` with every ``cls`` instance in it (through lists, tuples and
+    dicts) replaced by its NumPy array."""
+    if isinstance(obj, cls):
+        return obj.__array__()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_arrays(i, cls) for i in obj)
+    if isinstance(obj, dict):
+        return {k: _to_arrays(v, cls) for k, v in obj.items()}
+    return obj
+
+
+def _rewrap_bits(result):
+    """A NumPy result as a :class:`BinarySequence` where it is one (1-D,
+    0s and 1s), else as it is."""
+    if isinstance(result, np.ndarray):
+        try:
+            return BinarySequence(result)
+        except (ValueError, TypeError):
+            pass
+    return result
+
 
 # ---------------------------------------------------------------------------
 # ElectricalSignal (reference typing.py:1022-2090)
@@ -361,7 +439,6 @@ class ElectricalSignal:
     """Complex baseband signal with a separately-tracked noise tensor."""
 
     n_pol = 1
-    __array_ufunc__ = None  # NumPy defers binary operators to this class
 
     def __init__(self, signal, noise=NULL, dtype=None):
         if isinstance(signal, ElectricalSignal):
@@ -439,6 +516,19 @@ class ElectricalSignal:
     def __array__(self, dtype=None, copy=None):
         return self.to_numpy(dtype)
 
+    # -- NumPy protocol integration (reference typing.py:1224-1306) --
+    def _wrap_array_result(self, result):
+        """Re-wrap an ndarray result in the signal class, on this signal's
+        device, when the shape is compatible (reference
+        typing.py:1268-1275): 1-D for electrical_signal, 1-D/2-D for
+        optical_signal."""
+        if isinstance(result, np.ndarray):
+            if type(self) is ElectricalSignal and result.ndim == 1:
+                return ElectricalSignal(_astensor(result, device=self.device))
+            if isinstance(self, OpticalSignal) and result.ndim in (1, 2):
+                return type(self)(_astensor(result, device=self.device))
+        return result
+
     def __getattr__(self, name):
         # ndarray attribute delegation (reference typing.py:1231-1238):
         # sig.var(), sig.max(), sig.cumsum(), sig.T ... act on signal+noise
@@ -447,6 +537,28 @@ class ElectricalSignal:
             return getattr(self.to_numpy(), name)
         raise AttributeError(
             f"'{type(self).__name__}' object has no attribute '{name}'")
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        """np.add/np.subtract/np.multiply keep the signal/noise bilinear
+        algebra whichever side the signal is on; other ufuncs act on
+        ``signal + noise`` and re-wrap shape-compatible results (reference
+        typing.py:1241-1276)."""
+        out = _operator(ElectricalSignal, _SIGNAL_OPS, ufunc, method, inputs,
+                        kwargs)
+        if out is not None:
+            return out
+        new_inputs = [inp.__array__() if isinstance(inp, ElectricalSignal)
+                      else inp for inp in inputs]
+        return self._wrap_array_result(
+            getattr(ufunc, method)(*new_inputs, **kwargs))
+
+    def __array_function__(self, func, types, args, kwargs):
+        """Higher-level NumPy functions (np.concatenate, np.convolve,
+        np.fft.fft, ...) act on ``signal + noise`` and re-wrap
+        shape-compatible results (reference typing.py:1278-1306)."""
+        return self._wrap_array_result(
+            func(*_to_arrays(args, ElectricalSignal),
+                 **_to_arrays(kwargs, ElectricalSignal)))
 
     # -- parsing helper --
     def _parse(self, other):
@@ -719,6 +831,75 @@ class ElectricalSignal:
         noi = (fft_convolve_same(self.noise, h) if _has_noise(self.noise)
                else NULL)
         return self.__class__(sig, noi)
+
+    # -- host-side plotting --
+    def plot(self, fmt="-", n: Optional[int] = None, xlabel=None, ylabel=None,
+             grid: bool = False, hold: bool = True, show: bool = False,
+             **kwargs):
+        import matplotlib.pyplot as plt
+        n = n if n is not None else self.size
+        t = gv.t[:n] if gv.t.size >= n else np.arange(n) * self.dt
+        y = np.asarray(self.to_numpy()).real
+        y = y[..., :n] if y.ndim == 1 else y[..., :n].T
+        if not hold:
+            plt.figure()
+        plt.plot(t * 1e9, y, fmt, **kwargs)
+        plt.xlabel(xlabel or "Time [ns]")
+        plt.ylabel(ylabel or "Amplitude [V]")
+        if grid:
+            plt.grid(alpha=0.3)
+        if kwargs.get("label"):
+            plt.legend()
+        if show:
+            plt.show()
+        return self
+
+    def psd(self, fmt="-", kind: str = "linear", n: Optional[int] = None,
+            hold: bool = True, grid: bool = True, show: bool = False,
+            **kwargs):
+        import matplotlib.pyplot as plt
+        from .utils.analysis import get_psd
+        x = np.asarray(self.to_numpy())
+        x = x if x.ndim == 1 else x[0]
+        f, p = get_psd(x[:n] if n else x, fs=gv.fs * 1e-9)
+        if kind == "log":
+            p = 10 * np.log10(np.maximum(p, 1e-30) / 1e-3)
+        if not hold:
+            plt.figure()
+        plt.plot(f, p, fmt, **kwargs)
+        plt.xlabel("Frequency [GHz]")
+        plt.ylabel("PSD" + (" [dBm]" if kind == "log" else " [W]"))
+        if grid:
+            plt.grid(alpha=0.3)
+        if show:
+            plt.show()
+        return self
+
+    def plot_eye(self, **kwargs):
+        from .devices import GET_EYE
+        eye_obj = GET_EYE(self, **kwargs)
+        eye_obj.plot()
+        return eye_obj
+
+    def grid(self, **kwargs):
+        """Add a grid to the current plot, chainable (reference
+        typing.py:2043-2059)."""
+        import matplotlib.pyplot as plt
+        kwargs.setdefault("alpha", 0.3)
+        plt.grid(**kwargs)
+        return self
+
+    def legend(self, *args, **kwargs):
+        """Add a legend to the current plot, chainable (reference
+        typing.py:2061-2078)."""
+        import matplotlib.pyplot as plt
+        plt.legend(*args, **kwargs)
+        return self
+
+    def show(self):
+        import matplotlib.pyplot as plt
+        plt.show()
+        return self
 
 
 # ---------------------------------------------------------------------------

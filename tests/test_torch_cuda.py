@@ -727,3 +727,95 @@ def test_profiling_trace_on_card(cuda_device, tmp_path):
         A, w, 40.0, **kw), out=lambda line: None)
     assert stats["n_ops"] > 0 and 0 < stats["busy_s"] <= stats["wall_s"]
     assert any("_nl_halfstep_kernel" in nm for nm in stats["by_name"])
+
+
+def _fbg_inputs(n, kL, apodization, F, device):
+    """The ``fbg_rk4`` arguments of a grating over n bins of the staged
+    chain's grid (fs = 640 GHz, f0 at 1550 nm), made by the code
+    ``devices.FBG`` runs; the step count is the last."""
+    from scipy.constants import c, pi
+    fs, f0 = 640e9, c / 1550e-9
+    lam = 2 * pi * c / (2 * pi * np.fft.fftshift(np.fft.fftfreq(n, 1 / fs))
+                        + 2 * pi * f0)
+    lam_D, L, dneff, vdneff = devices._fbg_resolve_geometry(
+        1.45, 1.0, None, f0, kL, None, None, None, 1e-4)
+    return devices._fbg_rk4_inputs(lam, 1.45, lam_D, L, dneff, vdneff,
+                                   apodization, F, device)
+
+
+@pytest.mark.parametrize("kL,apodization,F", [(2.0, "uniform", 0.0),
+                                              (8.0, "gaussian", 10.0)])
+def test_fbg_rk4_kernel_matches_plain(cuda_device, kL, apodization, F):
+    """The kernel against the plain loop on the card: R and S to 1e-4 of
+    their peak, H = S/R to 1e-4 (float32 over hundreds of RK4 steps; the
+    kernel may contract a product and a sum into one fma)."""
+    args = _fbg_inputs(2**16 + 3, kL, apodization, F, cuda_device)
+    R, S = kernels.fbg_rk4(*args)
+    assert kernels.LAUNCHES["fbg_rk4"] == 1
+    Rr, Sr = kernels.fbg_rk4_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in ((R, Rr), (S, Sr)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert float((S / R - Sr / Rr).abs().max()) <= 1e-4
+    if apodization == "uniform":  # the Bragg peak reflects tanh(kL)
+        assert abs(float((S / R).abs().max()) - np.tanh(kL)) < 1e-3
+
+
+def test_fbg_on_card_matches_cpu(cuda_device):
+    gv(sps=64, R=10e9, N=2**10, device="cuda")
+    try:
+        r = np.random.default_rng(2)
+        x = r.normal(size=2**16) + 1j * r.normal(size=2**16)
+        kw = dict(fc=gv.f0, vdneff=1e-4, kL=2.0, print_params=False,
+                  retH=True)
+        card, H = devices.FBG(devices.OpticalSignal(x), **kw)
+        assert kernels.LAUNCHES["fbg_rk4"] == 1
+        gv(sps=64, R=10e9, N=2**10, device="cpu")
+        cpu, Hc = devices.FBG(devices.OpticalSignal(x), **kw)
+        np.testing.assert_allclose(H, Hc, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(card.signal.cpu().numpy(),
+                                   cpu.signal.numpy(), rtol=0,
+                                   atol=1e-4 * np.abs(x).max())
+    finally:
+        gv.default()
+
+
+def test_trajectory_on_card_matches_cpu(cuda_device):
+    gv(sps=16, R=10e9, N=2**12, device="cuda")
+    try:
+        t = np.arange(2**16)
+        x = 0.15 * np.exp(-((t - 2**15) / 400.0) ** 2) + 0j
+        kw = dict(length=20, alpha=0.2, beta_2=-21, gamma=1.3, phi_max=0.05)
+        z, A = devices.FIBER(devices.OpticalSignal(x), return_steps=True,
+                             **kw)
+        assert A.device.type == "cuda" and A.shape == (z.size, x.size)
+        assert kernels.LAUNCHES["nl_halfstep"] == z.size - 1
+        gv(sps=16, R=10e9, N=2**12, device="cpu")
+        zc, Ac = devices.FIBER(devices.OpticalSignal(x), return_steps=True,
+                               **kw)
+        assert z.size == zc.size
+        np.testing.assert_allclose(z, zc, rtol=0, atol=1e-5 * 20)
+        np.testing.assert_allclose(A.cpu().numpy(), Ac.numpy(), rtol=0,
+                                   atol=1e-4 * np.abs(x).max())
+    finally:
+        gv.default()
+
+
+def test_get_eye_host_engine_on_card_signal(cuda_device):
+    """engine="host" takes a card signal to the host; it agrees with the
+    device engine on the card to 2e-4."""
+    gv(sps=16, R=10e9, N=2**11, device="cuda")
+    try:
+        r = np.random.default_rng(4)
+        x = np.repeat(r.integers(0, 2, 2**11), 16).astype(float)
+        k = np.exp(-0.5 * (np.arange(-32, 33) / 4.8) ** 2)
+        x = np.convolve(x, k / k.sum(), mode="same") + 0.05 * r.normal(
+            size=x.size)
+        sig = devices.ElectricalSignal(x)
+        h = devices.GET_EYE(sig, nslots=1024, engine="host")
+        d = devices.GET_EYE(sig, nslots=1024, engine="device")
+        for key in ("mu0", "mu1", "s0", "s1", "threshold", "t_opt"):
+            assert getattr(d, key) == pytest.approx(getattr(h, key),
+                                                    rel=2e-4, abs=2e-5), key
+    finally:
+        gv.default()

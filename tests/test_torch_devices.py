@@ -16,6 +16,8 @@ Tolerances, each against the JAX output:
   reductions in another order), the host engine's within 2e-4 relative and
   2e-5 absolute (tests/test_eye_device.py's bounds), the instant exactly.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -235,9 +237,14 @@ def test_fiber_not_ported_options():
     # return_steps, as in the JAX device
     with pytest.raises(ValueError, match="mesh= does not support"):
         TD.FIBER(op, length=1, mesh=object(), return_steps=True)
-    with pytest.raises(NotImplementedError, match="return_steps"):
-        TD.FIBER(op, length=1, return_steps=True)
-    with pytest.warns(RuntimeWarning, match="progress"):
+    # return_steps and show_progress are ported now
+    # (tests/test_torch_trajectory.py holds them to the JAX device): the
+    # trajectory comes back, and the bar warns of nothing
+    z, A_z = TD.FIBER(op, length=1, return_steps=True)
+    assert z[0] == 0.0 and z[-1] == pytest.approx(1.0)
+    assert tuple(A_z.shape) == (z.size, op.size)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         TD.FIBER(op, length=1, show_progress=True)
 
 

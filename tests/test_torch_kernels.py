@@ -196,9 +196,15 @@ def test_wrappers_take_plain_path_on_cpu():
                        kernels.adc_quantize_link_ref(x, lo, hi, 6))
     h = x[:17].contiguous()
     assert torch.equal(kernels.fir_filter(x, h), kernels.fir_filter_ref(x, h))
+    grid = [torch.linspace(0.5, -0.5, 9)[:8].contiguous()] * 4
+    coeff = (x[:50].contiguous(), x[50:100].contiguous(),
+             x[100:150].contiguous())
+    for got, want in zip(kernels.fbg_rk4(*coeff, 3.0, *grid, 8),
+                         kernels.fbg_rk4_ref(*coeff, 3.0, *grid, 8)):
+        assert torch.equal(got, want)
     assert kernels.LAUNCHES == {"nl_halfstep": 0, "cmul": 0,
                                 "histogram2d": 0, "adc_quantize": 0,
-                                "fir_filter": 0}
+                                "fir_filter": 0, "fbg_rk4": 0}
     assert "triton" not in sys.modules
 
 

@@ -33,7 +33,8 @@ _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
             "opticomlib_tpu_torch.parallel.dfft",
             "opticomlib_tpu_torch.parallel.fiber",
             "opticomlib_tpu_torch.parallel.pipeline",
-            "opticomlib_tpu_torch.link_pipeline")
+            "opticomlib_tpu_torch.link_pipeline",
+            "opticomlib_tpu_torch.logger", "opticomlib_tpu_torch.lab")
 
 
 def test_port_imports_no_jax():
