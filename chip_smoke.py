@@ -153,9 +153,30 @@ It checks them in phases, one line each; any failure exits non-zero:
     ``GET_EYE(engine="host")`` on the chain's PD output at 2^24 against the
     device engine (levels and crossings to 2e-4, the threshold to 2e-4 or
     within the KDE plateau plus two grid steps).
+21. the last of the JAX package, on the card: 21.1 ``native`` builds (g++,
+    into ``build/native/``) and loads; the port's vectorized ``prbs`` at
+    2^24 bits equals its bit-serial ``lfsr_prbs`` for orders 7, 15, 23 and
+    31, continuation state included; ``bit_error_count`` of config 2's
+    decided bits (``LinkProgram.run(seed).decide(th)`` against ``tx``, 2^18
+    bits) equals the link's own count, at ``dsp``'s threshold and at one
+    that errs; ``pack_bits`` / ``unpack_bits`` round-trip 2^24 bits; the
+    build's and each call's time; 21.2 the 15 example twins
+    (``examples/torch/``) on the card, each exiting cleanly: the 12
+    single-process ones in this process through ``runpy`` (``sys.argv`` as
+    a user's, ``gv.default()`` around each; their kernel launches are the
+    path "examples"), the 3 ``torch.distributed`` ones at world size 1 as
+    subprocesses, each with its own NCCL group; each twin's wall time.
+    The inputs of every kernel wrapper the in-process twins call are
+    caught, one per distinct shape, and held against the plain version
+    with phase 2's and phase 8's tolerances (their errors join
+    ``max_abs_err``); the figures of the twins that draw no keyed noise
+    (:data:`HELD_TWINS`) are held to the same twin run in this process with
+    ``--device cpu``, and the split-step table once more with the card's
+    FFTs made on the host (:func:`held_schemes`).
 
 The line before the last is a JSON object with, for each kernel, its
-launches (summed over the counted runs of the paths; per path under
+launches (summed over the counted runs of the paths but "examples", whose
+shapes are not the ones timed here; per path, "examples" too, under
 ``launches_by_path``), its error, its time, the plain version's, the
 library call's where there is one (``library_ms``, else null) and its bound
 ``bound_ms``: the least time the card could take, the larger of the bytes
@@ -164,14 +185,17 @@ the function must move over 3.35 TB/s and its float32 operations over
 ``{"ok": true, "device": {...}}``.  Compiled kernels go to ``build/`` in
 this checkout.
 """
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -776,6 +800,404 @@ def staged_leftovers(torch, kernels, link, prbs, spec, params, dev):
           f"s", flush=True)
     gv.default()
     return out
+
+
+#: the example twins of phase 21.2 (examples/torch/): those run in this
+#: process, with the kernels each must launch on the card, and the
+#: ``torch.distributed`` ones, each a subprocess of its own
+TWINS_IN_PROCESS = {
+    "fused_link": ("nl_halfstep", "cmul", "histogram2d"),
+    "ook_transmission_fiber_simulation": ("fir_filter", "nl_halfstep",
+                                          "cmul", "histogram2d"),
+    "ppm_transmission": ("fir_filter", "histogram2d"),
+    "longhaul_dbp": ("nl_halfstep", "cmul"),
+    "dispersion_managed_link": ("nl_halfstep", "cmul", "histogram2d"),
+    "higher_order_ssfm": ("nl_halfstep", "cmul"),
+    "laser_linewidth_demo": (),
+    "noise_filtering_comparison": (),
+    "rcos_pulse_eye": ("histogram2d",),
+    "ppm_vs_ook_psd": ("fir_filter",),
+    "mzm_transfer_function": (),
+    "generalized_mzm": (),
+}
+TWINS_DISTRIBUTED = ("sharded_fused_link", "sharded_wdm_sweep",
+                     "span_pipeline_link")
+NATIVE_ORDERS, NATIVE_BITS = (7, 15, 23, 31), 2**24
+#: the figures of the twins that draw no keyed noise (noiseless, or from the
+#: JAX script's own seeded host ``np.random``), held on the card to the same
+#: twin run in this process with ``--device cpu``, with the bands that
+#: tests/test_torch_examples*.py hold the CPU twin to its JAX script:
+#: ("num", pattern, most difference: the printed step), ("max", pattern,
+#: bound on both), ("lines", start: the lines that start so equal as text),
+#: ("schemes",): the split-step table (see :func:`held_schemes`)
+HELD_TWINS = {
+    "ook_transmission_fiber_simulation": [
+        ("num", r"Average received power: (\S+) dBm", 0.01)],
+    "ppm_transmission": [
+        ("num", r"hard-decision BER: \S+ \((\d+) errors", 0),
+        ("num", r"soft-decision BER: \S+ \((\d+) errors", 0)],
+    "longhaul_dbp": [("num", r"after 20 spans: P = (\S+) dBm", 0.01),
+                     ("num", r"EVM vs launched field: (\S+)", 0.001)],
+    "higher_order_ssfm": [("schemes",), ("max", r"round trip: (\S+)", 1e-4)],
+    "laser_linewidth_demo": [
+        ("num", r"lw =\s+20 MHz  ->  measured FWHM =\s+(\S+)", 0.1),
+        ("num", r"lw =\s+100 MHz  ->  measured FWHM =\s+(\S+)", 0.1)],
+    "noise_filtering_comparison": [
+        ("num", r"brick-wall output power:\s+(\S+) dBm", 0.01),
+        ("num", r"\(prediction\s+(\S+) dBm\)", 0.01),
+        ("num", r"Bessel output power:\s+(\S+) dBm", 0.01),
+        ("num", r"NEB ratio (\S+)\)", 0.001)],
+    "rcos_pulse_eye": [("lines", "")],
+    "ppm_vs_ook_psd": [("num", rf"{m}\s+(\S+) x Rb", 0.01) for m in (
+        "PPM M=4", "PPM M=8", "PPM M=16", "PPM M=32", "OOK")],
+    "mzm_transfer_function": [("max", r"theory\| = (\S+)", 1e-12),
+                              ("lines", "extinction")],
+    "generalized_mzm": [("max", r"ideal ER\): max \|dP\| = (\S+)", 1e-12),
+                        ("lines", "N=2 vs cos"), ("lines", "N= 4"),
+                        ("lines", "N=10")],
+}
+#: the wrappers whose inputs phase 21.2 catches in the twins' card runs, one
+#: per distinct shape (and tap count, bin count, 16-byte alignment), to hold
+#: each against its plain version; the kernel each launches
+CAUGHT_WRAPPERS = {"nl_halfstep": "nl_halfstep", "cmul": "cmul",
+                   "fir_filter": "fir_filter",
+                   "histogram_rows": "histogram2d",
+                   "histogram2d": "histogram2d"}
+
+
+def _figure(out: str, pattern: str, name: str) -> float:
+    import re
+    m = re.search(pattern, out)
+    check(m is not None, 21, f"{name}: no figure {pattern!r} in\n{out}")
+    return float(m.group(1))
+
+
+def _schemes(out: str) -> dict:
+    """{scheme label: (FFT pairs, relative error)} of higher_order_ssfm's
+    table."""
+    import re
+    rows = {}
+    for ln in out.splitlines():
+        m = re.match(r"(\S.*?h=L/\d+|\S.*?tol=\S+)\s+(\d+|\(self\))\s+(\S+)$",
+                     ln.strip())
+        if m:
+            rows[m.group(1)] = (m.group(2), float(m.group(3)))
+    return rows
+
+
+def held_schemes(card: str, cpu: str, host_fft: str) -> str:
+    """higher_order_ssfm's table on the card against the CPU.  Each error is
+    against a float32 oracle of 3072 FFT pairs.  The FFT-pair counts are
+    equal; an error of 1e-3 and more (truncation) is within 5 % of the
+    CPU's.  One below is the oracle's own round-off: below 1e-3 on both, and
+    within a factor 2 of the CPU's once the card's FFTs are made on the host
+    (``host_fft``: the same twin on the card, every FFT through the CPU), so
+    the kernels and the rest of the path add nothing to it; cuFFT's float32
+    round-off makes that floor larger (scripts/torch_ssfm_floor.py measures
+    it against a float64 oracle).  Returns a summary."""
+    got, want, hf = _schemes(card), _schemes(cpu), _schemes(host_fft)
+    check(set(got) == set(want) == set(hf) and len(want) == 8, 21,
+          f"higher_order_ssfm: schemes {sorted(got)} vs {sorted(want)}")
+    ratios = []
+    for label, (pairs, e) in want.items():
+        check(got[label][0] == pairs == hf[label][0], 21,
+              f"higher_order_ssfm {label}: FFT pairs {got[label][0]} / "
+              f"{hf[label][0]} vs {pairs} on the CPU")
+        for run, (_, g) in (("card", got[label]), ("host FFT", hf[label])):
+            if e >= 1e-3:
+                check(abs(g - e) <= 0.05 * e, 21, f"higher_order_ssfm "
+                      f"{label} ({run}): error {g:.3g} vs {e:.3g} on the CPU")
+            else:
+                check(g < 1e-3, 21, f"higher_order_ssfm {label} ({run}): "
+                      f"error {g:.3g} (CPU {e:.3g}) not below 1e-3")
+        if e < 1e-3:
+            check(e / 2 <= hf[label][1] <= 2 * e, 21,
+                  f"higher_order_ssfm {label}: error {hf[label][1]:.3g} "
+                  f"with host FFTs, {e:.3g} on the CPU")
+            ratios.append(got[label][1] / e)
+    return (f"floor card / CPU {min(ratios):.2f}-{max(ratios):.2f}x, with "
+            f"host FFTs within 2x")
+
+
+def held_figures(name: str, card: str, cpu: str) -> None:
+    """The figures :data:`HELD_TWINS` names, on the card against the CPU."""
+    for kind, *spec in HELD_TWINS[name]:
+        if kind == "num":
+            pattern, step = spec
+            a, b = (_figure(o, pattern, name) for o in (card, cpu))
+            check(abs(a - b) <= step + 1e-9, 21, f"{name}: {pattern!r} "
+                  f"{a} on the card, {b} on the CPU (step {step})")
+        elif kind == "max":
+            pattern, bound = spec
+            for o in (card, cpu):
+                check(_figure(o, pattern, name) <= bound, 21,
+                      f"{name}: {pattern!r} above {bound} in\n{o}")
+        elif kind == "lines":
+            a, b = ([ln.strip() for ln in o.strip().splitlines()
+                     if ln.startswith(spec[0])] for o in (card, cpu))
+            check(a == b != [], 21, f"{name}: lines {spec[0]!r} differ:\n"
+                  f"{a}\non the CPU\n{b}")
+
+
+def catch_inputs(torch, kernels, caught: dict) -> dict:
+    """Wrap :data:`CAUGHT_WRAPPERS` so that the first call with each key
+    (shapes, integer arguments, 16-byte alignment of each tensor) keeps a
+    copy of its inputs in ``caught``, at the same alignment; returns the
+    originals to put back."""
+    def keep(a):
+        off = (a.data_ptr() % 16) // a.element_size()
+        buf = torch.empty(a.numel() + off, dtype=a.dtype, device=a.device)
+        c = buf[off:].view(a.shape)
+        c.copy_(a)
+        return c
+
+    def wrap(fname, fn):
+        def wrapper(*args, **kw):
+            tensors = [a for a in args if torch.is_tensor(a)]
+            if tensors and tensors[0].is_cuda:
+                key = (fname,) + tuple(
+                    (tuple(a.shape), a.data_ptr() % 16) if torch.is_tensor(a)
+                    else a if isinstance(a, int) else None for a in args)
+                if key not in caught:
+                    caught[key] = tuple(keep(a) if torch.is_tensor(a) else a
+                                        for a in args)
+            return fn(*args, **kw)
+        return wrapper
+
+    originals = {f: getattr(kernels, f) for f in CAUGHT_WRAPPERS}
+    for f, fn in originals.items():
+        setattr(kernels, f, wrap(f, fn))
+    return originals
+
+
+def replay_caught(torch, kernels, caught: dict) -> dict:
+    """Each caught input through its kernel and its plain version, held
+    with phase 2's tolerances (``nl_halfstep`` ``TOL``; ``cmul`` and the
+    histograms bit-equal) and phase 8's (``fir_filter`` 1e-5 of the
+    peak).  Returns the largest abs error of each kernel."""
+    err = {}
+    for key, args in caught.items():
+        fname, kernel = key[0], CAUGHT_WRAPPERS[key[0]]
+        what = f"{fname} {[k for k in key[1:] if k is not None]}"
+        if fname == "nl_halfstep":
+            got, ref = kernels.nl_halfstep(*args), kernels.nl_halfstep_ref(
+                *args)
+            for a, b in zip(got, ref):
+                check(torch.allclose(a, b, **TOL), 21, f"{what}: max abs "
+                      f"err {float((a - b).abs().max()):.3g}")
+            e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        else:
+            got = getattr(kernels, fname)(*args)
+            ref = getattr(kernels, fname + "_ref")(*args)
+            e = float((got - ref).abs().max()) if got.numel() else 0.0
+            if fname == "fir_filter":
+                bound = 1e-5 * float(ref.abs().max())
+                check(e <= bound, 21, f"{what}: max abs err {e:.3g} > "
+                      f"{bound:.3g}")
+            else:
+                check(torch.equal(got, ref), 21, f"{what}: max abs err "
+                      f"{e:.3g}, not the plain version's bits")
+        err[kernel] = max(err.get(kernel, 0.0), e)
+    return err
+
+
+def native_and_examples(torch, kernels, link, prbs, spec, params, dev):
+    """Phase 21: the native host helpers and the example twins on the card.
+    Returns the launches of the twins run in this process (path
+    "examples")."""
+    import runpy
+
+    from opticomlib_tpu_torch import gv, native
+    t21 = time.perf_counter()
+
+    # 21.1 native: build, the PRBS oracle, error counting, bit packing
+    t0 = time.perf_counter()
+    check(native.available(), 21, "native library did not build or load")
+    t_build = time.perf_counter() - t0
+    prbs_walls = {}
+    for order in NATIVE_ORDERS:
+        seed = (1 << order) - 1
+        t0 = time.perf_counter()
+        vec, s_vec = prbs(order, length=NATIVE_BITS, seed=seed)
+        t_vec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat, s_nat = native.lfsr_prbs(order, seed, NATIVE_BITS)
+        prbs_walls[order] = (t_vec, time.perf_counter() - t0)
+        check(np.array_equal(vec, nat) and s_vec == s_nat, 21,
+              f"PRBS{order} at 2^24 bits: prbs and lfsr_prbs differ "
+              f"(states {s_vec} vs {s_nat})")
+        more_vec, _ = prbs(order, length=64, seed=s_vec)
+        more_nat, _ = native.lfsr_prbs(order, s_nat, 64)
+        check(np.array_equal(more_vec, more_nat), 21,
+              f"PRBS{order}: the continuations differ")
+    prog = link.build_link(spec, N_BITS, params, device=dev)
+    bits = prbs(15, length=N_BITS)[0]
+    d = prog.dsp(bits=bits, seed=3)
+    r = prog.run(bits=bits, seed=3)
+    counts = []
+    # the link's own counts: the fused receiver's at its threshold, and the
+    # run's ``ber`` at one a deviation below the upper level, which errs
+    for th, want in ((d.threshold, d.n_errors),
+                     (d.eye.mu1 - d.eye.s1, None)):
+        rx = r.decide(th)
+        t0 = time.perf_counter()
+        n_nat = native.bit_error_count(rx.data, r.tx.data)
+        t_count = time.perf_counter() - t0
+        want = round(r.ber(th) * N_BITS) if want is None else want
+        check(n_nat == want, 21, f"bit_error_count {n_nat} at threshold "
+              f"{th:.5f}, the link counts {want}")
+        counts.append((th, n_nat, t_count))
+    check(counts[1][1] > 0, 21, "the erring threshold made no error")
+    del prog, d, r
+    seq = prbs(31, length=NATIVE_BITS)[0]
+    t0 = time.perf_counter()
+    packed = native.pack_bits(seq)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = native.unpack_bits(packed, NATIVE_BITS)
+    t_unpack = time.perf_counter() - t0
+    check(np.array_equal(back, seq) and np.array_equal(
+        packed, np.packbits(seq, bitorder="little")), 21,
+        "pack_bits / unpack_bits do not round-trip 2^24 bits")
+    print(f"phase 21.1 native: ok build and load {t_build:.3f} s; prbs = "
+          f"lfsr_prbs at 2^24 bits, states equal, orders "
+          + ", ".join(f"{o} (vectorized {a * 1e3:.1f} ms, bit-serial "
+                      f"{b * 1e3:.1f} ms)" for o, (a, b) in prbs_walls.items())
+          + "; config 2 (2^18 bits) bit_error_count "
+          + ", ".join(f"{n} at threshold {th:.5f} ({t * 1e3:.2f} ms)"
+                      for th, n, t in counts)
+          + f" equal to the link's; pack {t_pack * 1e3:.1f} ms, unpack "
+          f"{t_unpack * 1e3:.1f} ms at 2^24 bits", flush=True)
+
+    # 21.2 the twins: in this process, then the distributed ones
+    folder = ROOT / "examples" / "torch"
+    found = sorted(p.stem for p in folder.glob("*.py"))
+    check(found == sorted([*TWINS_IN_PROCESS, *TWINS_DISTRIBUTED]), 21,
+          f"examples/torch holds {found}")
+    # each twin's own output goes to build/examples/<name>.log, its last
+    # line here (the whole of it only when it fails)
+    logs = ROOT / "build" / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    argv = sys.argv
+
+    def run_twin(name, *flags):
+        """``examples/torch/<name>.py`` in this process with ``flags``;
+        its output and wall time.  Any failure, the twin's exit too, fails
+        the phase."""
+        path = str(folder / f"{name}.py")
+        gv.default()
+        sys.argv = [path, *flags]
+        torch.cuda.synchronize()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(path, run_name="__main__")
+            torch.cuda.synchronize()
+        except (Exception, SystemExit) as e:  # a twin's exit too: report
+            print(out.getvalue(), flush=True)
+            traceback.print_exc()
+            fail(21, f"examples/torch/{name}.py {flags}: "
+                 f"{type(e).__name__}: {e}")
+        finally:
+            sys.argv = argv
+            gv.default()
+        return out.getvalue(), time.perf_counter() - t0
+
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    walls, per_twin, outs, caught = {}, {}, {}, {}
+    originals = catch_inputs(torch, kernels, caught)
+    try:
+        for name, want in TWINS_IN_PROCESS.items():
+            kernels.reset_launches()
+            outs[name], walls[name] = run_twin(name)
+            launched = dict(kernels.LAUNCHES)
+            (logs / f"{name}.log").write_text(outs[name])
+            per_twin[name] = {k: v for k, v in launched.items() if v}
+            check(all(launched[k] > 0 for k in want), 21,
+                  f"{name}: launches {launched}, expected {want}")
+            for k, v in launched.items():
+                total[k] += v
+            # the twin's own figures, not the parameter and eye tables
+            said = [ln.strip() for ln in outs[name].splitlines()
+                    if ln[:1] != "\t" and ln.strip()[:1] not in "-*"
+                    and any(c in ln for c in "=:0123456789")]
+            print(f"phase 21.2 {name}: ok {walls[name]:.2f} s, launches "
+                  f"{per_twin[name]}; " + " | ".join(said[-3:]), flush=True)
+    finally:
+        for f, fn in originals.items():
+            setattr(kernels, f, fn)
+    kernels.reset_launches()
+
+    # every launch of the path was caught at a wrapper: each input held
+    # against the plain version, at the twins' own shapes
+    by_kernel = {}
+    for key in caught:
+        by_kernel.setdefault(CAUGHT_WRAPPERS[key[0]], []).append(key)
+    launched = {k for k, v in total.items() if v}
+    check(launched <= set(by_kernel), 21, f"kernels {sorted(launched)} "
+          f"launched, inputs caught for {sorted(by_kernel)}")
+    t0 = time.perf_counter()
+    ex_err = replay_caught(torch, kernels, caught)
+    print(f"phase 21.2 kernels at the twins' shapes: ok "
+          + "; ".join(f"{k} {len(v)} inputs (shapes "
+                      + ", ".join(sorted({str(key[1][0]) for key in v}))
+                      + f"), max abs err {ex_err[k]:.3g}"
+                      for k, v in sorted(by_kernel.items()))
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del caught
+
+    # the figures that draw no keyed noise: the card against the CPU, and
+    # the split-step table once more on the card with every FFT on the host
+    t0 = time.perf_counter()
+    for name in HELD_TWINS:
+        cpu, _ = run_twin(name, "--device", "cpu")
+        held_figures(name, outs[name], cpu)
+        if name == "higher_order_ssfm":
+            fft, ifft = torch.fft.fft, torch.fft.ifft
+            torch.fft.fft = (lambda x, *a, **k: fft(x.cpu(), *a, **k).to(
+                x.device))
+            torch.fft.ifft = (lambda x, *a, **k: ifft(x.cpu(), *a, **k).to(
+                x.device))
+            try:
+                host_fft, _ = run_twin(name)
+            finally:
+                torch.fft.fft, torch.fft.ifft = fft, ifft
+            floor = held_schemes(outs[name], cpu, host_fft)
+    kernels.reset_launches()
+    print(f"phase 21.2 figures on the card against --device cpu: ok "
+          f"{len(HELD_TWINS)} twins ({', '.join(HELD_TWINS)}); "
+          f"higher_order_ssfm {floor} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    procs = {}
+    for name in TWINS_DISTRIBUTED:
+        with open(logs / f"{name}.log", "w") as log:  # the child keeps it
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, str(folder / f"{name}.py")], cwd=ROOT,
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + 600
+    while any(name not in walls for name in procs):
+        for name, (t0, p) in procs.items():
+            if name not in walls and p.poll() is not None:
+                walls[name] = time.perf_counter() - t0
+        if time.perf_counter() > deadline:
+            for _, q in procs.values():
+                q.kill()
+            fail(21, "a distributed twin ran over 600 s")
+        time.sleep(0.05)
+    for name, (_, p) in procs.items():
+        out = (logs / f"{name}.log").read_text()
+        check(p.returncode == 0, 21,
+              f"examples/torch/{name}.py exit {p.returncode}:\n{out}")
+        print(f"phase 21.2 {name} (world size 1, NCCL): "
+              + " | ".join(ln.strip() for ln in out.splitlines()
+                           if ln.strip() and "[W" not in ln), flush=True)
+    print("phase 21.2 examples: ok 15 of 15 exit 0 on the card; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + f" (the 3 distributed ones at once); launches of the 12 in "
+          f"this process {total}; phase 21 "
+          f"{time.perf_counter() - t21:.1f} s", flush=True)
+    return total, ex_err
 
 
 def main() -> None:
@@ -2293,6 +2715,12 @@ def main() -> None:
         ms[key] = ms10[key] = (g["ms20"], g["plain20"])
         bounds[key] = g["bound20"]
 
+    # ---- phase 21: native and the example twins ----
+    launches_examples, ex_err = native_and_examples(
+        torch, kernels, link, prbs, spec, params, dev)
+    for k, e in ex_err.items():  # the twins' launches, held in phase 21.2
+        err[k] = max(err[k], e)
+
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,
                "config3_soft": launches3s, "config5": launches5,
@@ -2301,7 +2729,7 @@ def main() -> None:
                "span_chain": launches_chain,
                **{"sharded_" + k: v for k, v in launches_sharded.items()},
                "pipelined_config4": launches19, "span_pipeline": launches_sp,
-               **st["launches"]}
+               **st["launches"], "examples": launches_examples}
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},
@@ -2320,10 +2748,14 @@ def main() -> None:
                 "library_ms": library.get(k),
                 "ms_one_launch": ms[k][0], "plain_ms_one_launch": ms[k][1]}
 
+    print(smi[0], flush=True)   # the card again, beside the numbers
     print(json.dumps({"kernels": [
         {"name": k, "route": REPLACES[k][0], "source": REPLACES[k][1],
          "replaces": REPLACES[k][2],
-         "launches": sum(p[k] for p in by_path.values()),
+         # the twins' launches are at other shapes than the times and
+         # bounds of this line: under launches_by_path only
+         "launches": sum(c[k] for p, c in by_path.items()
+                         if p != "examples"),
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k], **numbers(k),
          **({"shape": "by rows (1, 4096) eye window, 2^20 samples"}

@@ -7,7 +7,9 @@ starts one ``nvcc`` per source, all at once.  The libraries land in
 ``build/kernels/`` at the repository root, named by the source and a hash of
 its text and the flags, so an edited source is rebuilt and an unchanged one
 is reused.  The compiler's report (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside each library as ``<name>.log``.
+spills) is kept beside each library as ``<name>.log``.  The same
+compile-and-cache step (:func:`compiled_library`) builds the port's C++ host
+helpers (``native/``) with ``g++`` into ``build/native/``.
 """
 from __future__ import annotations
 
@@ -62,12 +64,46 @@ def _nvcc() -> str:
     return found
 
 
+def cached_path(src: Path, flags, out_dir: Path, name: str) -> Path:
+    """Where the library built from ``src`` with ``flags`` lives (built or
+    not): ``out_dir``, named by ``name`` and a hash of the flags and the
+    source's text."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return out_dir / f"libopticomlib_{name}_{h.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives (built or not)."""
-    src = _CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
-    return BUILD_DIR / f"libopticomlib_{name}_{h.hexdigest()[:16]}.so"
+    return cached_path(_CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR, name)
+
+
+def _start(compiler: str, flags, src: Path, path: Path) -> tuple:
+    """Start compiling ``src`` into a temporary name beside ``path``."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+    return cmd, tmp, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(path: Path, job: tuple, timeout: float):
+    """Wait for the compile ``job`` of :func:`_start`; keep its report as
+    ``<path>.log`` and move the library into ``path`` (atomic: never a torn
+    library).  Returns None, or what went wrong."""
+    cmd, tmp, proc = job
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+    path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return (f"{Path(cmd[-1]).name}: {Path(cmd[0]).name} exit "
+                f"{proc.returncode}\n{log}")
+    os.replace(tmp, path)
+    return None
 
 
 def build(names=None) -> dict:
@@ -80,30 +116,29 @@ def build(names=None) -> dict:
     todo = {name: path for name, path in out.items() if not path.is_file()}
     if not todo:
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-        procs[name] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (cmd, tmp, proc) in procs.items():
-        try:
-            log, _ = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            log, _ = proc.communicate()
-        todo[name].with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"{name}.cu: nvcc exit {proc.returncode}\n{log}")
-        else:
-            os.replace(tmp, todo[name])  # atomic: never a torn .so
+    jobs = {name: _start(nvcc, NVCC_FLAGS, _CSRC / f"{name}.cu", path)
+            for name, path in todo.items()}
+    failed = [e for e in (_finish(todo[name], job, 600)
+                          for name, job in jobs.items()) if e]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
+
+
+def compiled_library(compiler: str, flags, src: Path, out_dir: Path,
+                     name: str, timeout: float = 120) -> ctypes.CDLL:
+    """Load the library built from the one source ``src`` with ``compiler``
+    and ``flags``, compiling it into ``out_dir`` first if it is not there
+    (:func:`cached_path`).  Raises ``OSError`` when the compiler is missing
+    or the library does not load, ``RuntimeError`` when the compile
+    fails."""
+    path = cached_path(src, flags, out_dir, name)
+    if not path.is_file():
+        err = _finish(path, _start(compiler, flags, src, path), timeout)
+        if err:
+            raise RuntimeError(err)
+    return ctypes.CDLL(str(path))
 
 
 @functools.cache

@@ -2,7 +2,7 @@
 fiber, for tests/test_torch_parallel.py.  Not a pytest module; imports no
 JAX.
 
-    python _torch_dist_child.py <rank> <world> <rendezvous_file> <out_dir> <suite>
+    python _torch_dist_child.py <rank> <world> <rendezvous_file> <out_dir> <suite> [<first item>]
 
 Suites:
 
@@ -15,8 +15,13 @@ Suites:
   after), exit code 17;
 * ``resume`` world size 2: resumes from that directory (the ranks must
   agree on step 1), finishes, runs an uninterrupted reference in a fresh
-  directory and holds its own block to it bit for bit.
+  directory and holds its own block to it bit for bit;
+* ``isolate`` world size 2, collectives timing out after 5 s: the items of
+  :data:`CHECKS_ISOLATE`, one of which fails on rank 1 between two
+  collectives (tests/_torch_dist_items.py then stops the ranks, and the
+  items after it run in a fresh launch).
 
+The items of a suite run from ``<first item>`` (an index, default 0) on.
 Every rank writes ``results_rank<r>.json``: ``{case: {"ok": bool, "msg":
 str, ...}}``.  The input makers and case tables are imported by the test
 module, which computes the references (the JAX package, and the port on one
@@ -25,7 +30,6 @@ process) from the same seeds.
 import json
 import os
 import sys
-import traceback
 
 import numpy as np
 
@@ -633,6 +637,36 @@ CHECKS_W2X2 = {"mesh_2x2": check_mesh_2x2, "named_axes": check_named_axes,
                "mesh_collectives": check_mesh_collectives}
 
 
+def _gather_item(ctx, item):
+    """Every rank's (rank, item) through one all-gather: the ranks must
+    all be at ``item``."""
+    import torch
+    import torch.distributed as dist
+    mine = torch.tensor([ctx["rank"], item])
+    parts = [torch.empty_like(mine) for _ in range(ctx["world"])]
+    dist.all_gather(parts, mine)
+    got = [p.tolist() for p in parts]
+    assert got == [[r, item] for r in range(ctx["world"])], got
+    return {}
+
+
+def check_diverges(ctx):
+    """A fault on rank 1 between two collectives: it raises before the
+    all-gather that the other ranks make (they wait for it and time out)."""
+    if ctx["rank"] == 1:
+        raise RuntimeError("simulated fault on rank 1")
+    return _gather_item(ctx, 1)
+
+
+#: the ``isolate`` suite (2 ranks, collectives time out after 5 s): an item
+#: that fails on one rank and leaves the group a collective off, and items
+#: after it that must still pass
+CHECKS_ISOLATE = {"before": lambda ctx: _gather_item(ctx, 0),
+                  "diverges": check_diverges,
+                  "after": lambda ctx: _gather_item(ctx, 2),
+                  "after_again": lambda ctx: _gather_item(ctx, 3)}
+
+
 def run_field_case(ctx, name):
     from opticomlib_tpu_torch.parallel import ssfm_sharded
     _, spec, kw = FIELD_CASES[name]
@@ -693,17 +727,25 @@ def crash_or_resume(rank, mesh, out_dir, mode):
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     rendezvous, out_dir, suite = sys.argv[3], sys.argv[4], sys.argv[5]
+    start = int(sys.argv[6]) if len(sys.argv) > 6 else 0
 
     import torch
     torch.set_num_threads(1)
+    from _torch_dist_items import run_items
     from opticomlib_tpu_torch.parallel import (initialize_multihost,
                                                make_link_mesh)
 
     # a hung collective fails after a minute instead of waiting
     n = initialize_multihost(f"file://{rendezvous}", world, rank,
-                             device="cpu", timeout_s=60)
+                             device="cpu",
+                             timeout_s=5 if suite == "isolate" else 60)
     assert n == world
 
+    if suite == "isolate":
+        ctx = dict(rank=rank, world=world)
+        run_items([(name, lambda fn=fn: fn(ctx)) for name, fn in
+                   CHECKS_ISOLATE.items()], rank, world, out_dir, start)
+        return
     if suite in ("crash", "resume"):
         crash_or_resume(rank, make_link_mesh(n_wdm=1, n_time=world), out_dir,
                         suite)
@@ -716,15 +758,7 @@ def main():
             for name, case in FIELD_CASES.items() if case[0] == suite]
     todo += [(name, lambda fn=fn: fn(ctx)) for name, fn in
              (CHECKS_W4 if suite == "w4" else CHECKS_W2X2).items()]
-    results = {}
-    for name, fn in todo:
-        try:
-            results[name] = dict(ok=True, msg="", **fn())
-        except Exception:
-            results[name] = dict(ok=False, msg=traceback.format_exc())
-        with open(os.path.join(out_dir, f"results_rank{rank}.json"),
-                  "w") as f:
-            json.dump(results, f)
+    run_items(todo, rank, world, out_dir, start)
 
 
 if __name__ == "__main__":

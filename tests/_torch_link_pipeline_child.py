@@ -20,10 +20,8 @@ str, ...}}``; a case passes when it is ok on every rank.  The tables and
 makers are imported by the test module, which builds the JAX package's
 twins from them.
 """
-import json
 import os
 import sys
-import traceback
 
 import numpy as np
 
@@ -560,9 +558,11 @@ CHECKS_S1 = {
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     rendezvous, out_dir, suite = sys.argv[3], sys.argv[4], sys.argv[5]
+    start = int(sys.argv[6]) if len(sys.argv) > 6 else 0
 
     import torch
     torch.set_num_threads(1)
+    from _torch_dist_items import run_items
     from opticomlib_tpu_torch.parallel import (initialize_multihost,
                                                make_span_mesh)
 
@@ -578,15 +578,7 @@ def main():
     if suite == "s4":
         todo += [(f"matrix_{k}", lambda k=k: run_matrix_case(ctx, k))
                  for k in MATRIX]
-    results = {}
-    for name, fn in todo:
-        try:
-            results[name] = dict(ok=True, msg="", **fn())
-        except Exception:
-            results[name] = dict(ok=False, msg=traceback.format_exc())
-        with open(os.path.join(out_dir, f"results_rank{rank}.json"),
-                  "w") as f:
-            json.dump(results, f)
+    run_items(todo, rank, world, out_dir, start)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,6 @@ twins of the same links from them.
 import json
 import os
 import sys
-import traceback
 
 import numpy as np
 
@@ -518,9 +517,11 @@ CHECKS_W2X2 = {
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     rendezvous, out_dir, suite = sys.argv[3], sys.argv[4], sys.argv[5]
+    start = int(sys.argv[6]) if len(sys.argv) > 6 else 0
 
     import torch
     torch.set_num_threads(1)
+    from _torch_dist_items import run_items
     from opticomlib_tpu_torch.parallel import (initialize_multihost,
                                                make_link_mesh)
     from opticomlib_tpu_torch.parallel.fiber import make_mesh
@@ -540,15 +541,7 @@ def main():
     ctx = dict(rank=rank, world=world, mesh=mesh, out=out_dir,
                wdm_mesh=make_mesh(range(world), ("wdm",)))
     todo += [(name, lambda fn=fn: fn(ctx)) for name, fn in checks.items()]
-    results = {}
-    for name, fn in todo:
-        try:
-            results[name] = dict(ok=True, msg="", **fn())
-        except Exception:
-            results[name] = dict(ok=False, msg=traceback.format_exc())
-        with open(os.path.join(out_dir, f"results_rank{rank}.json"),
-                  "w") as f:
-            json.dump(results, f)
+    run_items(todo, rank, world, out_dir, start)
 
 
 if __name__ == "__main__":

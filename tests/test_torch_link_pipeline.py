@@ -26,7 +26,6 @@ bit-equal.
 """
 import dataclasses
 import functools
-import json
 import os
 
 import jax
@@ -41,7 +40,7 @@ from opticomlib_tpu import params as jparams
 from opticomlib_tpu.parallel import pipeline as jpipe
 from opticomlib_tpu_torch import link as tlink
 from opticomlib_tpu_torch.parallel import pipeline as tpipe
-from test_torch_parallel import _run_ranks
+from test_torch_parallel import _all_ranks_ok, _suite
 
 torch.set_num_threads(2)
 
@@ -113,34 +112,14 @@ def _write_jax_inputs(out_dir):
     np.savez(os.path.join(out_dir, "jax_inputs.npz"), **d)
 
 
-def _suite(tmp_path_factory, suite, world, prepare=None):
-    out_dir = str(tmp_path_factory.mktemp(suite))
-    if prepare is not None:
-        prepare(out_dir)
-    codes, outs = _run_ranks(world, out_dir, suite, child=CHILD)
-    assert codes == [0] * world, outs
-    results = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"results_rank{r}.json")) as f:
-            results.append(json.load(f))
-    return dict(out=out_dir, results=results)
-
-
 @pytest.fixture(scope="module")
 def s4(tmp_path_factory):
-    return _suite(tmp_path_factory, "s4", 4, _write_jax_inputs)
+    return _suite(tmp_path_factory, "s4", _write_jax_inputs, child=CHILD)
 
 
 @pytest.fixture(scope="module")
 def s1(tmp_path_factory):
-    return _suite(tmp_path_factory, "s1", 1)
-
-
-def _all_ranks_ok(run, name):
-    for r, res in enumerate(run["results"]):
-        assert name in res, f"rank {r} never reached {name}"
-        assert res[name]["ok"], f"rank {r}: {res[name]['msg']}"
-    return run["results"][0][name]
+    return _suite(tmp_path_factory, "s1", world=1, child=CHILD)
 
 
 # ---------------------------------------------------------------------------

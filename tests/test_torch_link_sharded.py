@@ -35,7 +35,7 @@ import _torch_link_sharded_child as child
 from opticomlib_tpu import link as jlink
 from opticomlib_tpu import params as jparams
 from opticomlib_tpu.ops import ssfm as jssfm
-from test_torch_parallel import _run_ranks
+from test_torch_parallel import _all_ranks_ok, _suite
 
 torch.set_num_threads(2)
 
@@ -60,34 +60,14 @@ def _write_jax_consts(out_dir):
              **{k: np.asarray(v) for k, v in pr.consts.items()})
 
 
-def _suite(tmp_path_factory, suite, prepare=None):
-    out_dir = str(tmp_path_factory.mktemp(suite))
-    if prepare is not None:
-        prepare(out_dir)
-    codes, outs = _run_ranks(4, out_dir, suite, child=CHILD)
-    assert codes == [0] * 4, outs
-    results = []
-    for r in range(4):
-        with open(os.path.join(out_dir, f"results_rank{r}.json")) as f:
-            results.append(json.load(f))
-    return dict(out=out_dir, results=results)
-
-
 @pytest.fixture(scope="module")
 def t4(tmp_path_factory):
-    return _suite(tmp_path_factory, "t4", _write_jax_consts)
+    return _suite(tmp_path_factory, "t4", _write_jax_consts, child=CHILD)
 
 
 @pytest.fixture(scope="module")
 def w2x2(tmp_path_factory):
-    return _suite(tmp_path_factory, "w2x2")
-
-
-def _all_ranks_ok(run, name):
-    for r, res in enumerate(run["results"]):
-        assert name in res, f"rank {r} never reached {name}"
-        assert res[name]["ok"], f"rank {r}: {res[name]['msg']}"
-    return run["results"][0][name]
+    return _suite(tmp_path_factory, "w2x2", child=CHILD)
 
 
 # ---------------------------------------------------------------------------

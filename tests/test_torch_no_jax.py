@@ -1,7 +1,11 @@
 """The port stands alone: importing every module of opticomlib_tpu_torch
-imports neither JAX nor the JAX package, and asking for a CUDA device
+imports neither JAX nor the JAX package, no source of the port or of its
+example scripts names either in an import, and asking for a CUDA device
 without a card raises instead of falling back to the CPU (``build_link``
 and ``gv(device=...)`` alike)."""
+import ast
+import glob
+import os
 import subprocess
 import sys
 
@@ -34,7 +38,14 @@ _MODULES = ("opticomlib_tpu_torch", "opticomlib_tpu_torch.link",
             "opticomlib_tpu_torch.parallel.fiber",
             "opticomlib_tpu_torch.parallel.pipeline",
             "opticomlib_tpu_torch.link_pipeline",
-            "opticomlib_tpu_torch.logger", "opticomlib_tpu_torch.lab")
+            "opticomlib_tpu_torch.logger", "opticomlib_tpu_torch.lab",
+            "opticomlib_tpu_torch.native")
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCES = sorted(
+    glob.glob(os.path.join(_ROOT, "opticomlib_tpu_torch", "**", "*.py"),
+              recursive=True)
+    + glob.glob(os.path.join(_ROOT, "examples", "torch", "*.py")))
 
 
 def test_port_imports_no_jax():
@@ -49,6 +60,37 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def _imported(path):
+    """Every module name an import statement of ``path`` names."""
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", _SOURCES,
+                         ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_source_imports_jax(path):
+    """The package (native/ included) and the example twins name no
+    ``jax``/``jaxlib`` module and nothing of ``opticomlib_tpu`` but
+    ``opticomlib_tpu_torch`` in any import, even one inside a function."""
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "opticomlib_tpu")]
+    assert bad == [], (path, bad)
+
+
+def test_the_scan_sees_the_twins_and_native():
+    rel = {os.path.relpath(p, _ROOT) for p in _SOURCES}
+    assert "opticomlib_tpu_torch/native/__init__.py" in rel
+    assert sum(r.startswith("examples/torch/") for r in rel) == 15
+    # the scan sees a JAX script's imports
+    assert {"opticomlib_tpu", "opticomlib_tpu.link"} <= set(_imported(
+        os.path.join(_ROOT, "examples", "fused_link.py")))
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

@@ -49,16 +49,16 @@ CHILD = os.path.join(os.path.dirname(__file__), "_torch_dist_child.py")
 TIME_LIMIT = 300  # seconds a launch may take before its children are killed
 
 
-def _run_ranks(world, out_dir, suite, child=CHILD):
-    """Spawn ``world`` ranks of ``suite`` of the rank script ``child``;
-    returns (exit codes, outputs)."""
+def _run_ranks(world, out_dir, suite, child=CHILD, start=0):
+    """Spawn ``world`` ranks of ``suite`` of the rank script ``child``,
+    from its item ``start`` on; returns (exit codes, outputs)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    rendezvous = os.path.join(out_dir, f"rendezvous_{suite}")
+    rendezvous = os.path.join(out_dir, f"rendezvous_{suite}_from{start}")
     procs = [subprocess.Popen(
         [sys.executable, child, str(r), str(world), rendezvous, out_dir,
-         suite], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
+         suite, str(start)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
     outs = []
     try:
         for p in procs:
@@ -79,17 +79,58 @@ def _run_ranks(world, out_dir, suite, child=CHILD):
     return [p.returncode for p in procs], outs
 
 
-def _suite(tmp_path_factory, suite, prepare=None):
+def _suite(tmp_path_factory, suite, prepare=None, world=4, child=CHILD):
+    """Run every item of ``suite`` on ``world`` ranks of ``child``: one
+    launch, and after an item that failed on some rank (the ranks stop
+    there, tests/_torch_dist_items.py) a fresh launch from the item after
+    it, so that no item runs in a process group that a failure has left
+    unsound.  Returns the output directory, each rank's results merged over
+    the launches, and the first item of each launch."""
     out_dir = str(tmp_path_factory.mktemp(suite))
     if prepare is not None:
         prepare(out_dir)
-    codes, outs = _run_ranks(4, out_dir, suite)
-    assert codes == [0] * 4, outs
-    results = []
-    for r in range(4):
-        with open(os.path.join(out_dir, f"results_rank{r}.json")) as f:
-            results.append(json.load(f))
-    return dict(out=out_dir, results=results)
+    results, launches, start = [{} for _ in range(world)], [], 0
+    while True:
+        codes, outs = _run_ranks(world, out_dir, suite, child, start)
+        launches.append(start)
+        assert codes == [0] * world, (f"launch from item {start}", outs)
+        stops = set()
+        for r in range(world):
+            with open(os.path.join(out_dir, f"results_rank{r}.json")) as f:
+                res = json.load(f)
+            if "_stopped_after" in res:
+                stops.add(res.pop("_stopped_after"))
+            results[r].update(res)
+        if not stops:
+            return dict(out=out_dir, results=results, launches=launches)
+        # a rank that reported late may have gone on alone past the item
+        # where the others stopped: what it did there runs again
+        start = min(stops) + 1
+
+
+def _first_failures(run):
+    """For each rank, the first item that failed there, with its
+    traceback."""
+    lines = []
+    for r, res in enumerate(run["results"]):
+        bad = [k for k, v in res.items() if not v["ok"]]
+        lines.append(f"rank {r}: " + (f"first failed {bad[0]!r}\n"
+                                      f"{res[bad[0]]['msg']}" if bad
+                                      else "no item failed"))
+    return "\n".join(lines)
+
+
+def _all_ranks_ok(run, name):
+    """The results of item ``name``, which every rank must have passed; the
+    failure names, for each rank, the first item that failed there."""
+    missing = [r for r, res in enumerate(run["results"]) if name not in res]
+    failed = [r for r, res in enumerate(run["results"])
+              if name in res and not res[name]["ok"]]
+    assert not missing and not failed, (
+        f"{name}: never reached on ranks {missing}, failed on ranks "
+        f"{failed}; launches from items {run['launches']}\n"
+        + _first_failures(run))
+    return run["results"][0][name]
 
 
 CONVERT_FIELD = child.white(4096, 7, 1.0)
@@ -118,13 +159,6 @@ def w2x2(tmp_path_factory):
 
 def _case(request, name):
     return request.getfixturevalue(child.FIELD_CASES[name][0])
-
-
-def _all_ranks_ok(run, name):
-    for r, res in enumerate(run["results"]):
-        assert name in res, f"rank {r} never reached {name}"
-        assert res[name]["ok"], f"rank {r}: {res[name]['msg']}"
-    return run["results"][0][name]
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +281,28 @@ def test_sharded_state_crosses_to_jax(w4):
         d["re"], d["im"], json.loads(str(d["indices"])),
         CONVERT_FIELD.shape, NamedSharding(mesh, P("time")))
     np.testing.assert_array_equal(np.asarray(back), CONVERT_FIELD)
+
+
+def test_failed_item_fails_alone(tmp_path_factory):
+    """An item that fails on one rank between two collectives leaves the
+    process group a collective off; the ranks stop after it and the items
+    after it run in a fresh launch, where they pass.  (In one launch the
+    rank that raised would make the next item's all-gather with the others'
+    pending one, and every later item would fail.)  The failure of the item
+    names each rank's first failed item."""
+    run = _suite(tmp_path_factory, "isolate", world=2)
+    assert run["launches"] == [0, 2]
+    for name in ("before", "after", "after_again"):
+        _all_ranks_ok(run, name)
+    res = [r["diverges"] for r in run["results"]]
+    assert "simulated fault on rank 1" in res[1]["msg"]
+    assert not res[0]["ok"]          # its all-gather timed out
+    with pytest.raises(AssertionError) as e:
+        _all_ranks_ok(run, "diverges")
+    msg = str(e.value)
+    assert "failed on ranks [0, 1]" in msg
+    assert "rank 1: first failed 'diverges'" in msg
+    assert "simulated fault on rank 1" in msg
 
 
 def test_two_process_kill_and_resume_bitexact(tmp_path):
