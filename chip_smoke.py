@@ -173,11 +173,23 @@ It checks them in phases, one line each; any failure exits non-zero:
     (:data:`HELD_TWINS`) are held to the same twin run in this process with
     ``--device cpu``, and the split-step table once more with the card's
     FFTs made on the host (:func:`held_schemes`).
+22. the calibration twins (``scripts/torch_calibrate_equal_accuracy.py``,
+    ``torch_calibrate_dbp_o4.py``, ``torch_ber_equal_accuracy.py``) in this
+    process at their default sizes (config 2 at 2^24 samples, config 4 at
+    2^20, the BER sweep at 2^15 bits x 64), into a temporary ``--out``:
+    every entry of the file present and every number finite, each device
+    block naming this card; the matched o4 step and local-error tol
+    found, each at most the reference scheme's error; config 4's matched o4
+    round trip at most 0.01; no bit decided differently by the two schemes
+    at the four highest powers; the path's launches of ``nl_halfstep``,
+    ``cmul`` and ``histogram2d`` (path "calibration"), and its inputs of
+    each, one per shape, held against the plain versions with phase 2's
+    tolerances; each twin's wall time and the phase's.
 
 The line before the last is a JSON object with, for each kernel, its
 launches (summed over the counted runs of the paths but "examples", whose
-shapes are not the ones timed here; per path, "examples" too, under
-``launches_by_path``), its error, its time, the plain version's, the
+shapes are not the ones timed here; per path, "examples" and
+"calibration" too, under ``launches_by_path``), its error, its time, the plain version's, the
 library call's where there is one (``library_ms``, else null) and its bound
 ``bound_ms``: the least time the card could take, the larger of the bytes
 the function must move over 3.35 TB/s and its float32 operations over
@@ -970,11 +982,12 @@ def catch_inputs(torch, kernels, caught: dict) -> dict:
     return originals
 
 
-def replay_caught(torch, kernels, caught: dict) -> dict:
+def replay_caught(torch, kernels, caught: dict, phase: int = 21) -> dict:
     """Each caught input through its kernel and its plain version, held
     with phase 2's tolerances (``nl_halfstep`` ``TOL``; ``cmul`` and the
     histograms bit-equal) and phase 8's (``fir_filter`` 1e-5 of the
-    peak).  Returns the largest abs error of each kernel."""
+    peak); a failure fails ``phase``.  Returns the largest abs error of
+    each kernel."""
     err = {}
     for key, args in caught.items():
         fname, kernel = key[0], CAUGHT_WRAPPERS[key[0]]
@@ -983,7 +996,7 @@ def replay_caught(torch, kernels, caught: dict) -> dict:
             got, ref = kernels.nl_halfstep(*args), kernels.nl_halfstep_ref(
                 *args)
             for a, b in zip(got, ref):
-                check(torch.allclose(a, b, **TOL), 21, f"{what}: max abs "
+                check(torch.allclose(a, b, **TOL), phase, f"{what}: max abs "
                       f"err {float((a - b).abs().max()):.3g}")
             e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         else:
@@ -992,10 +1005,10 @@ def replay_caught(torch, kernels, caught: dict) -> dict:
             e = float((got - ref).abs().max()) if got.numel() else 0.0
             if fname == "fir_filter":
                 bound = 1e-5 * float(ref.abs().max())
-                check(e <= bound, 21, f"{what}: max abs err {e:.3g} > "
+                check(e <= bound, phase, f"{what}: max abs err {e:.3g} > "
                       f"{bound:.3g}")
             else:
-                check(torch.equal(got, ref), 21, f"{what}: max abs err "
+                check(torch.equal(got, ref), phase, f"{what}: max abs err "
                       f"{e:.3g}, not the plain version's bits")
         err[kernel] = max(err.get(kernel, 0.0), e)
     return err
@@ -1198,6 +1211,146 @@ def native_and_examples(torch, kernels, link, prbs, spec, params, dev):
           f"this process {total}; phase 21 "
           f"{time.perf_counter() - t21:.1f} s", flush=True)
     return total, ex_err
+
+
+#: the calibration twins of phase 22 (scripts/), in the order they run (the
+#: BER check reads the o4 step the first one matched), and the kernels the
+#: path must launch
+CALIBRATION_TWINS = ("torch_calibrate_equal_accuracy",
+                     "torch_calibrate_dbp_o4", "torch_ber_equal_accuracy")
+CALIBRATION_KERNELS = ("nl_halfstep", "cmul", "histogram2d")
+
+
+def _numbers_finite(obj, where="") -> list:
+    """The paths of the numbers in ``obj`` (a JSON value) that are not
+    finite."""
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items()
+                for p in _numbers_finite(v, f"{where}.{k}")]
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj)
+                for p in _numbers_finite(v, f"{where}[{i}]")]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [] if np.isfinite(obj) else [where]
+    return []
+
+
+def calibration(torch, kernels, dev, card: str):
+    """Phase 22: the three calibration twins of ``scripts/`` in this
+    process, on the card at their default sizes, into a temporary
+    ``--out``; their kernel inputs caught and held against the plain
+    versions.  ``card``: the card's ``nvidia-smi`` name and power limit.
+    Returns the path's launches and each kernel's largest error."""
+    import importlib.util
+    import tempfile
+
+    t22 = time.perf_counter()
+    logs = ROOT / "build" / "calibration"
+    logs.mkdir(parents=True, exist_ok=True)
+    walls, caught = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "EQUAL_ACCURACY_CUDA.json")
+        kernels.reset_launches()
+        originals = catch_inputs(torch, kernels, caught)
+        try:
+            for name in CALIBRATION_TWINS:
+                spec = importlib.util.spec_from_file_location(
+                    name, ROOT / "scripts" / f"{name}.py")
+                twin = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(twin)
+                said = io.StringIO()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(said):
+                        twin.main(["--device", str(dev), "--out", out])
+                except (Exception, SystemExit) as e:  # its exit too
+                    print(said.getvalue(), flush=True)
+                    traceback.print_exc()
+                    fail(22, f"scripts/{name}.py: {type(e).__name__}: {e}")
+                walls[name] = time.perf_counter() - t0
+                (logs / f"{name}.log").write_text(said.getvalue())
+        finally:
+            for f, fn in originals.items():
+                setattr(kernels, f, fn)
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        with open(out) as f:
+            data = json.load(f)
+    check(all(launches[k] > 0 for k in CALIBRATION_KERNELS), 22,
+          f"launches {launches}, expected {CALIBRATION_KERNELS}")
+
+    # the file: every entry present, every number finite, each block on
+    # this card
+    want = ("config", "truth", "reference_scheme", "o4", "local_error",
+            "tight", "method", "note", "device", "config4", "ber_check")
+    check(all(k in data for k in want), 22,
+          f"keys {sorted(data)}, expected {want}")
+    bad = _numbers_finite(data)
+    check(not bad, 22, f"not finite: {bad}")
+    card_name, limit = (s.strip() for s in card.split(","))
+    for block in (data, data["config4"], data["ber_check"]):
+        d = block["device"]
+        check(d["name"] == card_name and d["power_limit"] == limit, 22,
+              f"device block {d}, the card is {card}")
+    ref_e = data["reference_scheme"]["error"]
+    for key in ("o4", "local_error"):
+        m = data[key]
+        check(m is not None and m["error"] <= ref_e, 22,
+              f"{key}: {m}, the reference scheme's error {ref_e:.4g}")
+    c4 = data["config4"]
+    check(c4["o4"] is not None and c4["o4"]["rt_error"] <= c4["rt_target"],
+          22, f"config4 o4: {c4['o4']}")
+    rows = data["ber_check"]["rows"]
+    check(len(rows) == 6 and all(r["bit_disagreements"] == 0
+                                 for r in rows[-4:]), 22,
+          f"BER rows: {[(r['P0_dBm'], r['bit_disagreements']) for r in rows]}")
+    o4, le, tight = data["o4"], data["local_error"], data["tight"]
+
+    def entry(m, key):
+        return ("null (no candidate reached the target)" if m is None else
+                f"{key} {m[key]} at {m['error']:.4g} in {m['fft_pairs']} "
+                f"FFT pairs ({m['wall_s']} s)")
+
+    print(f"phase 22 config 2 (2^{int(np.log2(data['config']['n_samples']))}"
+          f" samples): ok reference phi_max 0.01 "
+          f"{data['reference_scheme']['n_steps']} steps, error "
+          f"{ref_e:.4g} ({data['reference_scheme']['wall_s']} s); o4 "
+          f"{entry(o4, 'h')}; local_error {entry(le, 'tol')}; tight 8e-3: "
+          f"reference {entry(tight['reference_scheme'], 'phi_max')}, o4 "
+          f"{entry(tight['o4'], 'h')}; float32 floor (cross-check) "
+          f"{data['truth']['cross_check_rel_err']:.4g}", flush=True)
+    print(f"phase 22 config 4 (2^{int(np.log2(c4['n_samples']))} samples): "
+          f"ok parity phi_max 0.05 rt "
+          f"{c4['parity']['rt_error']:.4g} in {c4['parity']['fft_pairs']} "
+          f"FFT pairs; o4 h {c4['o4']['h']} rt {c4['o4']['rt_error']:.4g}, "
+          f"forward {c4['o4']['fwd_error']:.4g}, {c4['o4']['fft_pairs']} "
+          f"FFT pairs", flush=True)
+    print(f"phase 22 BER check (2^{int(np.log2(data['ber_check']['n_bits']))}"
+          f" bits, o4 h {data['ber_check']['o4_h']}): ok "
+          + "; ".join(f"{r['P0_dBm']:g} dBm Q {r['reference']['q']} / "
+                      f"{r['o4']['q']}, errors {r['reference']['n_errors']}"
+                      f" / {r['o4']['n_errors']}, disagreements "
+                      f"{r['bit_disagreements']}" for r in rows), flush=True)
+
+    # every launch of the path was caught at a wrapper: each input held
+    # against its plain version
+    t0 = time.perf_counter()
+    err = replay_caught(torch, kernels, caught, phase=22)
+    shapes = {}
+    for key in caught:
+        shapes.setdefault(CAUGHT_WRAPPERS[key[0]], set()).add(str(key[1][0]))
+    check(set(CALIBRATION_KERNELS) <= set(err), 22,
+          f"inputs caught for {sorted(err)}, expected {CALIBRATION_KERNELS}")
+    kernels.reset_launches()
+    print("phase 22 kernels at the calibration's shapes: ok "
+          + "; ".join(f"{k} shapes {', '.join(sorted(v))}, max abs err "
+                      f"{err[k]:.3g}" for k, v in sorted(shapes.items()))
+          + f" ({time.perf_counter() - t0:.1f} s); launches {launches}",
+          flush=True)
+    print("phase 22 wall: " + ", ".join(f"{k} {v:.2f} s"
+                                         for k, v in walls.items())
+          + f"; phase 22 {time.perf_counter() - t22:.1f} s", flush=True)
+    return launches, err
 
 
 def main() -> None:
@@ -2721,6 +2874,11 @@ def main() -> None:
     for k, e in ex_err.items():  # the twins' launches, held in phase 21.2
         err[k] = max(err[k], e)
 
+    # ---- phase 22: the calibration twins ----
+    launches_cal, cal_err = calibration(torch, kernels, dev, smi[0])
+    for k, e in cal_err.items():
+        err[k] = max(err[k], e)
+
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,
                "config3_soft": launches3s, "config5": launches5,
@@ -2729,7 +2887,8 @@ def main() -> None:
                "span_chain": launches_chain,
                **{"sharded_" + k: v for k, v in launches_sharded.items()},
                "pipelined_config4": launches19, "span_pipeline": launches_sp,
-               **st["launches"], "examples": launches_examples}
+               **st["launches"], "examples": launches_examples,
+               "calibration": launches_cal}
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},

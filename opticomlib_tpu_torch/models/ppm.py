@@ -20,12 +20,14 @@ from scipy.integrate import quad
 from ..devices import GET_EYE, SAMPLER
 from ..eyediag import Eye
 from ..params import gv
+from ..rng import KeyLike, resolve
 from ..signals import Array_Like, BinarySequence, ElectricalSignal
 from ..utils.analysis import Q, dec2bin_array, str2array, tic, toc
 
 __all__ = ["PPM_ENCODER", "PPM_DECODER", "HDD", "SDD", "THRESHOLD_EST",
            "DSP", "BER_analizer", "theory_BER",
-           "sdd_positions", "hdd_positions", "positions_to_bits"]
+           "sdd_positions", "hdd_positions", "positions_to_bits",
+           "sdd_positions_jax", "hdd_positions_jax", "positions_to_bits_jax"]
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +73,29 @@ def positions_to_bits(positions: torch.Tensor, M: int) -> torch.Tensor:
     k = int(np.log2(M))
     shifts = torch.arange(k - 1, -1, -1, device=positions.device)
     return ((positions[:, None] >> shifts) & 1).reshape(-1).to(torch.uint8)
+
+
+#: the JAX package's names of the decisions (``sdd_positions_jax`` and
+#: ``positions_to_bits_jax`` take the same arguments)
+sdd_positions_jax = sdd_positions
+positions_to_bits_jax = positions_to_bits
+
+
+def hdd_positions_jax(on_slots: torch.Tensor, M: int,
+                      key: KeyLike) -> torch.Tensor:
+    """:func:`hdd_positions` under the JAX package's name and arguments:
+    the ``(n_sym, M)`` uniform scores are drawn from ``key`` (an int seed or
+    a ``torch.Generator`` on ``on_slots``' device, the port's keys), as the
+    JAX function draws them from its ``jax.random`` key.  Torch's Philox
+    stream is not threefry: a symbol with one ON slot gives the JAX
+    position, the random repairs agree in distribution only."""
+    if key is None:
+        raise TypeError("hdd_positions_jax needs a key (an int seed or a "
+                        "torch.Generator)")
+    n_sym = on_slots.numel() // M
+    uniform = torch.rand((n_sym, M), generator=resolve(key, on_slots.device),
+                         device=on_slots.device, dtype=torch.float32)
+    return hdd_positions(on_slots, M, uniform)
 
 
 def _as_bits(input) -> np.ndarray:

@@ -36,7 +36,8 @@ from . import kernels
 from .pulses import resample_fft
 
 __all__ = ["kmeans2_1d", "kmeans2_2d", "kde_min_threshold", "eye_metrics",
-           "eye_metrics_host", "eye_window", "shortest_int_hist", "linspace"]
+           "eye_metrics_host", "eye_window", "shortest_int_hist", "linspace",
+           "eye_metrics_jax", "eye_metrics_jit"]
 
 #: relative flatness tolerance of the KDE plateau diagnostic (same value as
 #: ``opticomlib_tpu.ops.eyeana.PLATEAU_TOL``)
@@ -278,6 +279,12 @@ def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
     return {k: (torch.stack([o[k] for o in outs])
                 if isinstance(v, torch.Tensor) else v)
             for k, v in outs[0].items()}
+
+
+#: the JAX package's names of its device engine, the jittable function and
+#: its compiled entry point: here both are :func:`eye_metrics` (the same
+#: arguments; nothing to compile)
+eye_metrics_jax = eye_metrics_jit = eye_metrics
 
 
 def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,

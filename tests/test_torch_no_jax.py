@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of opticomlib_tpu_torch
-imports neither JAX nor the JAX package, no source of the port or of its
-example scripts names either in an import, and asking for a CUDA device
+imports neither JAX nor the JAX package, no source of the port, of its
+example scripts, of its ``scripts/torch_*.py`` or of ``chip_smoke.py`` names
+either in an import, and asking for a CUDA device
 without a card raises instead of falling back to the CPU (``build_link``
 and ``gv(device=...)`` alike)."""
 import ast
@@ -45,7 +46,9 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = sorted(
     glob.glob(os.path.join(_ROOT, "opticomlib_tpu_torch", "**", "*.py"),
               recursive=True)
-    + glob.glob(os.path.join(_ROOT, "examples", "torch", "*.py")))
+    + glob.glob(os.path.join(_ROOT, "examples", "torch", "*.py"))
+    + glob.glob(os.path.join(_ROOT, "scripts", "torch_*.py"))
+    + [os.path.join(_ROOT, "chip_smoke.py")])
 
 
 def test_port_imports_no_jax():
@@ -88,6 +91,12 @@ def test_the_scan_sees_the_twins_and_native():
     rel = {os.path.relpath(p, _ROOT) for p in _SOURCES}
     assert "opticomlib_tpu_torch/native/__init__.py" in rel
     assert sum(r.startswith("examples/torch/") for r in rel) == 15
+    assert {"chip_smoke.py", "scripts/torch_calibration_common.py",
+            "scripts/torch_calibrate_equal_accuracy.py",
+            "scripts/torch_calibrate_dbp_o4.py",
+            "scripts/torch_ber_equal_accuracy.py",
+            "scripts/torch_bench_shard_crossover.py",
+            "scripts/torch_gen_api_docs.py"} <= rel
     # the scan sees a JAX script's imports
     assert {"opticomlib_tpu", "opticomlib_tpu.link"} <= set(_imported(
         os.path.join(_ROOT, "examples", "fused_link.py")))
