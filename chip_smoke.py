@@ -185,11 +185,22 @@ It checks them in phases, one line each; any failure exits non-zero:
     ``cmul`` and ``histogram2d`` (path "calibration"), and its inputs of
     each, one per shape, held against the plain versions with phase 2's
     tolerances; each twin's wall time and the phase's.
+23. the benchmark CLI, ``bench_cuda.py`` (the twin of ``bench.py``), in
+    this process with ``--all`` at bench.py's sizes into a temporary
+    ``--out``: the ten rows and the card in its device block, every number
+    finite, the step counts (the headline's 99, config 4's 589, o4 75 FFT
+    pairs, the tight rows' 985 and 189, config 4's o4 round trip 480) and
+    sizes, no bit in error in configs 2, 3 and 5; the path's launches (path
+    "bench") and its kernel inputs, one per shape, held against the plain
+    versions with phase 2's tolerances; each cell's best wall, walls and
+    peak memory; then ``python3 bench_cuda.py`` as a process of its own
+    (the default cells 1-4), its exit and its JSON line.
 
 The line before the last is a JSON object with, for each kernel, its
 launches (summed over the counted runs of the paths but "examples", whose
-shapes are not the ones timed here; per path, "examples" and
-"calibration" too, under ``launches_by_path``), its error, its time, the plain version's, the
+shapes are not the ones timed here; per path, "examples", "calibration"
+and "bench" too, under ``launches_by_path``), its error, its time, the
+plain version's, the
 library call's where there is one (``library_ms``, else null) and its bound
 ``bound_ms``: the least time the card could take, the larger of the bytes
 the function must move over 3.35 TB/s and its float32 operations over
@@ -1350,6 +1361,143 @@ def calibration(torch, kernels, dev, card: str):
     print("phase 22 wall: " + ", ".join(f"{k} {v:.2f} s"
                                          for k, v in walls.items())
           + f"; phase 22 {time.perf_counter() - t22:.1f} s", flush=True)
+    return launches, err
+
+
+#: the ten rows of bench_cuda.py --all, bench.py's (BENCH_ALL.json)
+BENCH_ROWS = ("config1_b2b_chain", "config2_ssfm_only",
+              "config2_ssfm_equal_accuracy", "config2_full_chain",
+              "config2_full_dsp", "config3_ppm8_chain", "config4_dbp_20x80",
+              "config4_dbp_o4_roundtrip", "config5_wdm16_per_chip",
+              "config5_shard_1x2e26")
+#: the kernels phase 23 must launch: the split-step in every cell but the
+#: back-to-back one, the histograms in the receivers of configs 2, 3 and 5
+BENCH_KERNELS = ("nl_halfstep", "cmul", "histogram2d")
+#: what bench_cuda.py must count at bench.py's sizes on the card: (row, keys
+#: down to the value, value).  The headline and config 4 are the JAX
+#: package's counts (99, 589); the equal-accuracy rows take the card's
+#: calibration (EQUAL_ACCURACY_CUDA.json: o4 h 2.0, 25 steps; tight o4
+#: h 0.8, 63 steps; the tight reference 985 steps on the card, 984 on the
+#: TPU); config 4's o4 round trip is 40 spans of 4 steps of 20 km
+BENCH_COUNTS = (
+    ("config2_ssfm_only", ("n_steps",), 99),
+    ("config4_dbp_20x80", ("total_steps",), 589),
+    ("config2_ssfm_equal_accuracy", ("fft_pairs",), 75),
+    ("config2_ssfm_equal_accuracy", ("tight", "reference_scheme",
+                                     "fft_pairs"), 985),
+    ("config2_ssfm_equal_accuracy", ("tight", "o4", "fft_pairs"), 189),
+    ("config4_dbp_o4_roundtrip", ("fft_pairs",), 480),
+    ("config4_dbp_20x80", ("n_samples",), 2**20),
+    ("config5_wdm16_per_chip", ("n_ch",), 16),
+    ("config5_wdm16_per_chip", ("n_per_ch",), 2**22),
+    ("config5_shard_1x2e26", ("n_samples",), 2**26),
+    ("config2_full_dsp", ("ber",), 0.0),
+    ("config3_ppm8_chain", ("ber",), 0.0),
+    ("config5_wdm16_per_chip", ("max_ber",), 0.0))
+
+
+def bench(torch, kernels, card: str):
+    """Phase 23: ``bench_cuda.py``, the port's benchmark CLI, in this
+    process with ``--all`` at bench.py's sizes on the card into a temporary
+    ``--out``, its kernel inputs caught and held against the plain
+    versions; then once as a user runs it, a process of its own with its
+    default cells.  ``card``: the card's ``nvidia-smi`` name and power
+    limit.  Returns the path's launches and each kernel's largest error."""
+    import importlib.util
+    import tempfile
+
+    t23 = time.perf_counter()
+    card_name, limit = (s.strip() for s in card.split(","))
+    spec = importlib.util.spec_from_file_location(
+        "bench_cuda", ROOT / "bench_cuda.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    caught = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "BENCH_ALL_CUDA.json")
+        said = io.StringIO()
+        kernels.reset_launches()
+        originals = catch_inputs(torch, kernels, caught)
+        try:
+            with contextlib.redirect_stdout(said):
+                line = cli.main(["--all", "--out", out])
+        except (Exception, SystemExit) as e:  # its exit too
+            print(said.getvalue(), flush=True)
+            traceback.print_exc()
+            fail(23, f"bench_cuda.py --all: {type(e).__name__}: {e}")
+        finally:
+            for f, fn in originals.items():
+                setattr(kernels, f, fn)
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        with open(out) as f:
+            rows = json.load(f)
+    t_all = time.perf_counter() - t23
+    check(json.loads(said.getvalue().strip().splitlines()[-1]) == line, 23,
+          "the printed line is not the returned one")
+    check(set(rows) == set(BENCH_ROWS) | {"device"}, 23,
+          f"rows {sorted(rows)}, expected {BENCH_ROWS} and the device")
+    for name, keys, want in BENCH_COUNTS:
+        got = rows[name]
+        for k in keys:
+            got = got[k]
+        check(got == want, 23, f"{name}.{'.'.join(keys)} {got}, expected "
+              f"{want}")
+    check(line["detail"]["n_steps"] == 99 and line["value"] > 0, 23,
+          f"headline {line['value']} samples/s in "
+          f"{line['detail']['n_steps']} steps")
+    bad = _numbers_finite(rows) + _numbers_finite(line)
+    check(not bad, 23, f"not finite: {bad}")
+    for d in (rows["device"], line["detail"]["device"]):
+        check(d["name"] == card_name and d["power_limit"] == limit
+              and d["count"] == torch.cuda.device_count(), 23,
+              f"device block {d}, the card is {card}")
+    check(all(launches[k] > 0 for k in BENCH_KERNELS), 23,
+          f"launches {launches}, expected {BENCH_KERNELS}")
+    for name in BENCH_ROWS:
+        r = rows[name]
+        print(f"phase 23 {name}: ok best {r['wall_s']} s of walls "
+              f"{[round(w, 4) for w in r['walls_s']]}, {r['samples_per_s']} "
+              f"samples/s, peak {r['peak_mem_gib']} GiB", flush=True)
+
+    # every launch of the path was caught at a wrapper: each input held
+    # against its plain version
+    t0 = time.perf_counter()
+    err = replay_caught(torch, kernels, caught, phase=23)
+    shapes = {}
+    for key in caught:
+        shapes.setdefault(CAUGHT_WRAPPERS[key[0]], set()).add(str(key[1][0]))
+    check(set(BENCH_KERNELS) <= set(err), 23,
+          f"inputs caught for {sorted(err)}, expected {BENCH_KERNELS}")
+    caught.clear()
+    kernels.reset_launches()
+    print("phase 23 kernels at the bench's shapes: ok "
+          + "; ".join(f"{k} shapes {', '.join(sorted(v))}, max abs err "
+                      f"{err[k]:.3g}" for k, v in sorted(shapes.items()))
+          + f" ({time.perf_counter() - t0:.1f} s); launches {launches}",
+          flush=True)
+
+    # as a user runs it: its own process, the default cells 1-4
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(ROOT / "bench_cuda.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    t_cli = time.perf_counter() - t0
+    check(run.returncode == 0, 23, f"python3 bench_cuda.py exited "
+          f"{run.returncode}:\n{run.stderr[-4000:]}")
+    said = json.loads(run.stdout.strip().splitlines()[-1])
+    check(said["metric"] == "ssfm_2e24_ook_throughput"
+          and said["detail"]["n_steps"] == 99 and "all" not in said["detail"]
+          and said["detail"]["device"]["name"] == card_name
+          and not _numbers_finite(said), 23, f"its line: {said}")
+    print(f"phase 23 python3 bench_cuda.py: ok {said['value']} samples/s "
+          f"in {said['detail']['n_steps']} steps (best "
+          f"{said['detail']['wall_s']} s), config 2 chain "
+          f"{said['detail']['full_chain_wall_s']} s; the process "
+          f"{t_cli:.1f} s", flush=True)
+    print(f"phase 23 wall: --all in process {t_all:.1f} s, the default "
+          f"cells as a process {t_cli:.1f} s; phase 23 "
+          f"{time.perf_counter() - t23:.1f} s", flush=True)
     return launches, err
 
 
@@ -2879,6 +3027,11 @@ def main() -> None:
     for k, e in cal_err.items():
         err[k] = max(err[k], e)
 
+    # ---- phase 23: the benchmark CLI ----
+    launches_bench, bench_err = bench(torch, kernels, smi[0])
+    for k, e in bench_err.items():
+        err[k] = max(err[k], e)
+
     by_path = {"config2": launches2, "config4": launches4,
                "staged": launches_staged, "config3_hard": launches3,
                "config3_soft": launches3s, "config5": launches5,
@@ -2888,7 +3041,7 @@ def main() -> None:
                **{"sharded_" + k: v for k, v in launches_sharded.items()},
                "pipelined_config4": launches19, "span_pipeline": launches_sp,
                **st["launches"], "examples": launches_examples,
-               "calibration": launches_cal}
+               "calibration": launches_cal, "bench": launches_bench}
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},

@@ -819,3 +819,36 @@ def test_get_eye_host_engine_on_card_signal(cuda_device):
                                                     rel=2e-4, abs=2e-5), key
     finally:
         gv.default()
+
+
+def test_bench_cuda_small_on_card(cuda_device, tmp_path):
+    """bench_cuda.py --small --all on the card: its JSON line and file have
+    the ten cells, every number finite, no bit in error, the card named."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "bench_all.json"
+    run = subprocess.run(
+        [sys.executable, os.path.join(root, "bench_cuda.py"), "--small",
+         "--all", "--out", str(out)], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "ssfm_2e24_ook_throughput" and line["value"] > 0
+    detail = line["detail"]
+    assert detail["device"]["torch_name"] == torch.cuda.get_device_name(0)
+    assert detail["device"]["power_limit"]
+    rows = json.loads(out.read_text())
+    assert len(rows) == 11 and rows["device"] == detail["device"]
+    for k, row in rows.items():
+        if k == "device":
+            continue
+        assert np.isfinite(row["samples_per_s"]) and row["samples_per_s"] > 0
+        assert row["peak_mem_gib"] > 0 and min(row["walls_s"]) > 0, k
+    assert rows["config2_full_dsp"]["ber"] == 0.0
+    assert rows["config3_ppm8_chain"]["ber"] == 0.0
+    assert rows["config5_wdm16_per_chip"]["max_ber"] == 0.0
+    assert rows["config4_dbp_o4_roundtrip"]["fft_pairs"] == 48

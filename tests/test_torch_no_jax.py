@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of opticomlib_tpu_torch
 imports neither JAX nor the JAX package, no source of the port, of its
-example scripts, of its ``scripts/torch_*.py`` or of ``chip_smoke.py`` names
-either in an import, and asking for a CUDA device
+example scripts, of its ``scripts/torch_*.py``, of ``bench_cuda.py`` or of
+``chip_smoke.py`` names either in an import, and asking for a CUDA device
 without a card raises instead of falling back to the CPU (``build_link``
 and ``gv(device=...)`` alike)."""
 import ast
@@ -48,7 +48,8 @@ _SOURCES = sorted(
               recursive=True)
     + glob.glob(os.path.join(_ROOT, "examples", "torch", "*.py"))
     + glob.glob(os.path.join(_ROOT, "scripts", "torch_*.py"))
-    + [os.path.join(_ROOT, "chip_smoke.py")])
+    + [os.path.join(_ROOT, "chip_smoke.py"),
+       os.path.join(_ROOT, "bench_cuda.py")])
 
 
 def test_port_imports_no_jax():
@@ -59,6 +60,21 @@ def test_port_imports_no_jax():
         "             or m.startswith(('jax.', 'jaxlib', 'opticomlib_tpu.'))\n"
         "             or m == 'opticomlib_tpu')\n"
         "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_bench_cuda_imports_no_jax():
+    """The benchmark CLI, imported as a module, loads no JAX."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('bench_cuda', "
+        f"{os.path.join(_ROOT, 'bench_cuda.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'opticomlib_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -91,7 +107,8 @@ def test_the_scan_sees_the_twins_and_native():
     rel = {os.path.relpath(p, _ROOT) for p in _SOURCES}
     assert "opticomlib_tpu_torch/native/__init__.py" in rel
     assert sum(r.startswith("examples/torch/") for r in rel) == 15
-    assert {"chip_smoke.py", "scripts/torch_calibration_common.py",
+    assert {"chip_smoke.py", "bench_cuda.py",
+            "scripts/torch_calibration_common.py",
             "scripts/torch_calibrate_equal_accuracy.py",
             "scripts/torch_calibrate_dbp_o4.py",
             "scripts/torch_ber_equal_accuracy.py",
