@@ -71,6 +71,7 @@ from .ops.prbs import prbs
 from .params import SimParams, check_device, current_device, resolve_params
 from .signals import BinarySequence, ElectricalSignal
 from .utils.analysis import idb, idbm
+from .utils.profiling import span
 
 __all__ = ["FiberSpec", "DBPSpec", "EDFASpec", "DMSpec", "BPFSpec",
            "RepeatSpec", "LinkSpec", "LinkProgram", "build_link"]
@@ -385,18 +386,20 @@ def _ook_decide(m, slots, bits_f32):
     Q((r-mu0)/s0)]``, in log space so high-SNR tails do not underflow to a
     flat zero) -> slicer -> error count, from one channel's eye scalars
     (reference ook.py:22-60, 135-218)."""
-    r = linspace(m["mu0"], m["mu1"], 1000)
-    lq1 = torch.special.log_ndtr(-(m["mu1"] - r) / m["s1"])
-    lq0 = torch.special.log_ndtr(-(r - m["mu0"]) / m["s0"])
-    rth = r[torch.argmin(torch.logaddexp(lq1, lq0))]
-    n_err = ((slots > rth) != (bits_f32 > 0.5)).sum()
+    with span("rx.decide"):
+        r = linspace(m["mu0"], m["mu1"], 1000)
+        lq1 = torch.special.log_ndtr(-(m["mu1"] - r) / m["s1"])
+        lq0 = torch.special.log_ndtr(-(r - m["mu0"]) / m["s0"])
+        rth = r[torch.argmin(torch.logaddexp(lq1, lq0))]
+        n_err = ((slots > rth) != (bits_f32 > 0.5)).sum()
     return rth, n_err
 
 
 def _ook_rx_ingraph(v, slots, bits_f32, sps, nslots, sps_resamp):
     """OOK receiver on the device: eye metrology -> :func:`_ook_decide`
     (reference ook.py:63-132)."""
-    m = _eye_scalars(v, sps, nslots, sps_resamp)
+    with span("rx.eye"):
+        m = _eye_scalars(v, sps, nslots, sps_resamp)
     return (m,) + _ook_decide(m, slots, bits_f32)
 
 
@@ -702,7 +705,8 @@ class LinkProgram(torch.nn.Module):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         draw = _injected(noise, self.device)
-        field, rin_ok = self._transmit(bits, gen, draw)
+        with span("tx"):
+            field, rin_ok = self._transmit(bits, gen, draw)
 
         # --- channel stages ---
         i_ase = itertools.count()
@@ -723,8 +727,9 @@ class LinkProgram(torch.nn.Module):
                     field = self._stage(field, s_st, s_cc, ase, neg_phi,
                                         n_steps)
 
-        v = self._receive(field, lambda name, sigma: gaussian(
-            (n,), sigma, gen, draw(name)))
+        with span("rx.pd"):
+            v = self._receive(field, lambda name, sigma: gaussian(
+                (n,), sigma, gen, draw(name)))
         out = (v, v[self.instant::sps], tuple(n_steps))
         if self.return_field:
             out = out + (field,)
@@ -813,25 +818,30 @@ class LinkProgram(torch.nn.Module):
         """Apply one stage other than a repeat: fiber stages append their
         step count to ``n_steps``, noisy EDFAs take ``ase(sigma)``."""
         if cc["kind"] == "fiber":
-            f, steps = self._fiber(f, st, cc, neg_phi)
+            with span("fiber", kind="dbp" if cc["sgn"] < 0 else "fiber",
+                      method=cc["method"]) as sp:
+                f, steps = self._fiber(f, st, cc, neg_phi)
+                sp.set(steps=steps)
             n_steps.append(steps)
             return f
-        if cc["kind"] == "edfa":
-            if "sigma_ase" in cc:  # physical 2-pol ASE
-                f = _promote_2pol(f) * float(f32(cc["sqrtG"]))
-                d = ase(cc["sigma_ase"])
-                f = f + torch.complex(d[:2], d[2:])
-            else:
-                f = f * float(f32(cc["sqrtG"]))
-            if "H2_name" in cc:
-                f = filters.apply_freq_response(f, getattr(
-                    self, cc["H2_name"]))
-            return f
-        if cc["kind"] == "dm":
-            ph = getattr(self, cc["phi_name"])
-            return filters.apply_freq_response(
-                f, torch.complex(torch.cos(ph), torch.sin(ph)))
-        return filters.apply_freq_response(f, getattr(self, cc["H2_name"]))
+        with span("stage", kind=cc["kind"]):
+            if cc["kind"] == "edfa":
+                if "sigma_ase" in cc:  # physical 2-pol ASE
+                    f = _promote_2pol(f) * float(f32(cc["sqrtG"]))
+                    d = ase(cc["sigma_ase"])
+                    f = f + torch.complex(d[:2], d[2:])
+                else:
+                    f = f * float(f32(cc["sqrtG"]))
+                if "H2_name" in cc:
+                    f = filters.apply_freq_response(f, getattr(
+                        self, cc["H2_name"]))
+                return f
+            if cc["kind"] == "dm":
+                ph = getattr(self, cc["phi_name"])
+                return filters.apply_freq_response(
+                    f, torch.complex(torch.cos(ph), torch.sin(ph)))
+            return filters.apply_freq_response(f, getattr(self,
+                                                          cc["H2_name"]))
 
     def _fiber(self, f, st: FiberSpec, cc: dict, neg_phi: dict):
         """One span, forward or (DBPSpec: ``sgn = -1``) the sign-flipped
@@ -935,16 +945,20 @@ class LinkProgram(torch.nn.Module):
         Returns a namespace with ``ber``, ``n_errors``, ``threshold``,
         ``eye`` (an :class:`Eye` without traces), ``tx`` (the transmitted
         ``BinarySequence``), ``n_steps`` and ``rin_ok``."""
-        tx, bits_f32 = self._bits(bits, prbs_order)
-        out = self(bits_f32, seed=seed, noise=noise)
-        m, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
-                                        self.params.sps, nslots, sps_resamp)
-        rin_ok = _rin_ok(out[-1])
-        n_err = int(n_err.item())
+        with span("call.dsp", n=self.n):
+            tx, bits_f32 = self._bits(bits, prbs_order)
+            out = self(bits_f32, seed=seed, noise=noise)
+            m, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
+                                            self.params.sps, nslots,
+                                            sps_resamp)
+            with span("rx.readback"):
+                rin_ok = _rin_ok(out[-1])
+                n_err = int(n_err.item())
+                rth = float(rth.item())
+                eye = _eye_to_host(m, 1.0 / self.params.fs)
         return SimpleNamespace(ber=n_err / self.n_bits, n_errors=n_err,
-                               threshold=float(rth.item()),
-                               eye=_eye_to_host(m, 1.0 / self.params.fs),
-                               tx=tx, n_steps=out[2], rin_ok=rin_ok)
+                               threshold=rth, eye=eye, tx=tx,
+                               n_steps=out[2], rin_ok=rin_ok)
 
     @torch.no_grad()
     def eye(self, bits=None, seed: int = 0, prbs_order: int = 9,
@@ -1091,20 +1105,25 @@ class LinkProgram(torch.nn.Module):
         results are gathered along ``axis``, so every rank returns all
         ``n_channels``.  The channels need no traffic between the ranks
         until that gather."""
-        bits = _sweep_bits(bits, n_channels, self.n_bits, prbs_order)
-        mine = self._channels(n_channels, mesh, axis)
-        wins, slots, steps, flags = self._sweep(bits, seed, noise, nslots,
-                                                mesh, axis)
-        rows, layout = _ook_sweep_rows(
-            wins, slots, torch.as_tensor(bits[mine].astype(np.float32),
-                                         device=self.device),
-            self.params.sps, nslots, sps_resamp,
-            dict(rin_ok=flags, steps=_steps_rows(steps, self.device)))
-        r = _gathered_rows(rows, layout, mesh, axis)
-        return SimpleNamespace(
-            threshold=r["rth"].astype(np.float32),
-            **{k: r[k] for k in ("mu0", "mu1", "s0", "s1", "er", "eye_h")},
-            **_sweep_result(r, n_channels, bits, self.n_bits))
+        with span("call.dsp_wdm", n=self.n, channels=n_channels):
+            bits = _sweep_bits(bits, n_channels, self.n_bits, prbs_order)
+            mine = self._channels(n_channels, mesh, axis)
+            wins, slots, steps, flags = self._sweep(bits, seed, noise,
+                                                    nslots, mesh, axis)
+            with span("rx.eye"):
+                rows, layout = _ook_sweep_rows(
+                    wins, slots, torch.as_tensor(
+                        bits[mine].astype(np.float32), device=self.device),
+                    self.params.sps, nslots, sps_resamp,
+                    dict(rin_ok=flags, steps=_steps_rows(steps,
+                                                         self.device)))
+            with span("rx.readback"):
+                r = _gathered_rows(rows, layout, mesh, axis)
+            return SimpleNamespace(
+                threshold=r["rth"].astype(np.float32),
+                **{k: r[k] for k in ("mu0", "mu1", "s0", "s1", "er",
+                                     "eye_h")},
+                **_sweep_result(r, n_channels, bits, self.n_bits))
 
     @torch.no_grad()
     def dsp_wdm_ppm(self, n_channels: int, M: int, decision: str = "soft",
@@ -1203,5 +1222,7 @@ def build_link(spec: LinkSpec, n_bits: int,
                                   time_axis=time_axis, wdm_axis=wdm_axis,
                                   return_field=return_field)
     device = current_device() if device is None else check_device(device)
-    return LinkProgram(spec, n_bits, resolve_params(params), device,
-                       return_field=return_field)
+    params = resolve_params(params)
+    with span("setup.build_link", n=int(n_bits) * params.sps):
+        return LinkProgram(spec, n_bits, params, device,
+                           return_field=return_field)

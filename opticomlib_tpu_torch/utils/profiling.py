@@ -1,7 +1,9 @@
 """Profiling hooks (port of ``opticomlib_tpu.utils.profiling``): a device
 trace of a block through ``torch.profiler``, named regions in it, a wall
-timer that synchronises the device at both ends, and the wall / busy / idle
-bookkeeping of a profiled call.
+timer that synchronises the device at both ends, the wall / busy / idle
+bookkeeping of a profiled call, and spans: a recorder, off by default, of
+where on the host the program is (:func:`span`, :func:`record`,
+:func:`drain`).
 
 The reference brackets every device with wall-clock ``tic``/``toc``
 (reference utils.py:293-340), which this package keeps as
@@ -11,7 +13,9 @@ so a time that means the device's work needs one of these.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from typing import Iterator, Optional
 
@@ -55,9 +59,111 @@ def trace(logdir: str) -> Iterator[None]:
 def annotate(name: str) -> Iterator[None]:
     """Name the enclosed region in the trace
     (``torch.profiler.record_function``); costs a few microseconds outside
-    a trace."""
-    with torch.profiler.record_function(name):
+    a trace.  While spans are recorded (:func:`record`) the region is also
+    a :func:`span` of the same name."""
+    with torch.profiler.record_function(name), span(name):
         yield
+
+
+# ---- spans ----
+# ``_records`` is the list closed spans are appended to while recording is
+# on, and None while it is off.  A span's times are read from
+# ``time.time_ns``, the clock of torch.profiler's events (kineto's), so
+# that spans and a device trace of the same run lie on one time axis.
+_records: Optional[list] = None
+_ids = itertools.count(1)
+_open = threading.local()      # .stack: the spans open on this thread
+
+
+class _NoSpan:
+    """What :func:`span` returns while recording is off: one shared object
+    that does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, val, tb):
+        return None
+
+    def set(self, **attrs) -> None:
+        """Attributes known only inside the span: dropped."""
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """One recorded span; its record is appended when it closes."""
+    __slots__ = ("rec",)
+
+    def __init__(self, name: str, attrs: dict):
+        self.rec = {"name": name, "id": None, "parent": None, "call": None,
+                    "t0_ns": None, "t1_ns": None, "attrs": attrs}
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        rec = self.rec
+        rec["id"] = next(_ids)
+        if stack:
+            rec["parent"] = stack[-1]["id"]
+            rec["call"] = stack[-1]["call"]
+        else:
+            rec["call"] = rec["id"]
+        stack.append(rec)
+        rec["t0_ns"] = time.time_ns()
+        return self
+
+    def __exit__(self, typ, val, tb):
+        rec = self.rec
+        rec["t1_ns"] = time.time_ns()
+        _open.stack.pop()
+        records = _records
+        if records is not None:
+            records.append(rec)
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span (a step count)."""
+        self.rec["attrs"].update(attrs)
+
+
+def span(name: str, **attrs):
+    """A context manager that records the enclosed region of the host's
+    work as ``{name, id, parent, call, t0_ns, t1_ns, attrs}`` while
+    recording is on (:func:`record`): ``parent`` is the id of the span open
+    around it on this thread, ``call`` the id of the outermost one (its
+    own where none is open), ``t0_ns`` / ``t1_ns`` the ``time.time_ns()``
+    of its start and end.  While recording is off (the default) it returns
+    one shared object that does nothing: no clock read, no allocation of
+    its own.  A span launches nothing on the device and never waits for
+    it; ``.set(**attrs)`` adds attributes known only inside it."""
+    if _records is None:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def record(on: bool) -> None:
+    """Turn the recording of spans on (an empty list, or the current one if
+    already on) or off (what was recorded and not drained is dropped)."""
+    global _records
+    if not on:
+        _records = None
+    elif _records is None:
+        _records = []
+
+
+def drain() -> list:
+    """The spans closed since recording was turned on or last drained, in
+    the order they closed; the list is emptied (recording stays as it
+    is)."""
+    global _records
+    out = _records
+    if out is None:
+        return []
+    _records = []
+    return out
 
 
 class DeviceTimer:

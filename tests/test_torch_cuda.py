@@ -729,6 +729,49 @@ def test_profiling_trace_on_card(cuda_device, tmp_path):
     assert any("_nl_halfstep_kernel" in nm for nm in stats["by_name"])
 
 
+def test_span_holds_its_kernel_launch_on_card(cuda_device):
+    """Spans and the CUDA trace share one clock on the card: a span around
+    one kernel launch holds the launch's runtime event, and the join of
+    spans and trace (perfbench.pbcore.spans) gives the kernel to that span
+    by its correlation id, the read-back after it to the enclosing one."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from opticomlib_tpu_torch.utils import profiling
+    from perfbench.pbcore import spans
+    A = _field((2**20,), 1, cuda_device)
+    E = _field((2**20,), 2, cuda_device)
+    float(kernels.cmul(A, E).abs().sum())
+    profiling.record(True)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            on = time.time_ns()
+            with profiling.span("call.card"):
+                with profiling.span("launch"):
+                    C = kernels.cmul(A, E)
+                total = float(C.abs().sum())
+            off = time.time_ns()
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    assert total > 0
+    ev = spans._events(prof)
+    (span,) = [r for r in recs if r["name"] == "launch"]
+    (kern,) = [e for e in ev if e[1] and "cmul" in e[0]]
+    # cudaLaunchKernel, and the cuLaunchKernel under it where traced
+    hosts = [e for e in ev if not e[1] and e[4] == kern[4]]
+    assert any("LaunchKernel" in h[0] for h in hosts), hosts
+    for h in hosts:
+        assert span["t0_ns"] <= h[2] and h[3] <= span["t1_ns"], (
+            h[0], h[2] - span["t0_ns"], h[3] - span["t1_ns"])
+    cut = spans.by_span(prof, recs, (on, off))
+    assert cut["calls"] == 1
+    assert cut["launches_by_span"]["launch"] == 1
+    assert cut["readbacks_by_span"] == {"call.card": 1}
+    assert spans.UNLINKED not in cut["busy_by_span"]
+
+
 def _fbg_inputs(n, kL, apodization, F, device):
     """The ``fbg_rk4`` arguments of a grating over n bins of the staged
     chain's grid (fs = 640 GHz, f0 at 1550 nm), made by the code

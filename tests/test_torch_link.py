@@ -208,3 +208,120 @@ def test_transmitter_options_match_jax(tx):
     res = progs[1].run(bits=bits)
     assert rel_l2(res.v.to_numpy(), v_j) <= 1e-4
     assert rel_l2(res.slots.to_numpy(), slots_j) <= 1e-4
+
+
+def _span_link(shape):
+    """A config-2-shaped link (50 km of phi_max-adaptive NLSE, a noisy
+    EDFA; 2^10 bits at sps 64) or a config-4-shaped one (20 x (80 km of
+    fixed-step o4 + a noisy EDFA), 20 DBP spans, a noisy laser, an 8-bit
+    ADC; 2^9 bits at sps 16), on the CPU."""
+    from opticomlib_tpu_torch.utils import profiling
+    span = dict(alpha=0.2, beta_2=-21.0, gamma=1.3)
+    if shape == "config2":
+        n_bits, sps, extra = 2**10, 64, {}
+        stages = (tlink.FiberSpec(length=50, **span),
+                  tlink.EDFASpec(G=10, NF=5))
+    else:
+        n_bits, sps = 2**9, 16
+        extra = dict(lw=1e5, rin=-150.0, adc_bits=8)
+        stages = (tlink.RepeatSpec(n=20, stages=(
+                      tlink.FiberSpec(length=80, h=20.0, method="o4", **span),
+                      tlink.EDFASpec(G=16, NF=5))),
+                  tlink.RepeatSpec(n=20, stages=(
+                      tlink.DBPSpec(length=80, h=20.0, method="o4",
+                                    undo_gain_dB=16, **span),)))
+    spec = tlink.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=16.0 if shape == "config2"
+        else 10.0, pulse_shape="gaussian", loss_dB=3, ER_dB=26,
+        stages=stages, pd_BW=0.75 * R, **extra)
+    profiling.record(True)
+    try:
+        prog = tlink.build_link(spec, n_bits, TParams.create(
+            sps=sps, R=R, _warn=False), device="cpu")
+        (build,) = profiling.drain()
+    finally:
+        profiling.record(False)
+    assert build["name"] == "setup.build_link" and build["parent"] is None
+    assert build["attrs"] == {"n": n_bits * sps}
+    bits = np.random.default_rng(2).integers(0, 2, n_bits).astype(np.uint8)
+    return prog, bits
+
+
+def _dsp_recorded(prog, call):
+    from opticomlib_tpu_torch.utils import profiling
+    profiling.record(True)
+    try:
+        res = call()
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    return res, recs
+
+
+@pytest.mark.parametrize("shape,n_fiber,n_stage", [("config2", 1, 1),
+                                                   ("config4", 40, 20)])
+def test_dsp_span_tree(shape, n_fiber, n_stage):
+    """``dsp`` records one ``call.dsp`` root and, under it, ``tx``, a
+    ``fiber`` span a fiber or DBP span (with the steps ``dsp`` returns) and
+    a ``stage`` span every other stage, in the order they run, ``rx.pd``,
+    ``rx.eye``, ``rx.decide`` and ``rx.readback``; its answers are the bits
+    of the same call with recording off."""
+    prog, bits = _span_link(shape)
+    res, recs = _dsp_recorded(prog, lambda: prog.dsp(bits=bits, seed=SEED))
+    off = prog.dsp(bits=bits, seed=SEED)
+    for k in ("ber", "n_errors", "threshold", "n_steps", "rin_ok"):
+        assert getattr(res, k) == getattr(off, k), k
+    for k in ("mu0", "mu1", "s0", "s1", "threshold", "er", "eye_h"):
+        a, b = getattr(res.eye, k, None), getattr(off.eye, k, None)
+        assert a == b or (a is None and b is None), k
+
+    (root,) = [r for r in recs if r["parent"] is None]
+    assert root["name"] == "call.dsp" and root["attrs"] == {"n": prog.n}
+    assert all(r["call"] == root["id"] for r in recs)
+    assert all(r["parent"] == root["id"] for r in recs if r is not root)
+    order = [r["name"] for r in sorted(recs, key=lambda r: r["t0_ns"])]
+    assert order[0] == "call.dsp" and order[1] == "tx"
+    assert order[-4:] == ["rx.pd", "rx.eye", "rx.decide", "rx.readback"]
+    fibers = [r for r in sorted(recs, key=lambda r: r["t0_ns"])
+              if r["name"] == "fiber"]
+    stages = [r for r in recs if r["name"] == "stage"]
+    assert len(fibers) == n_fiber == len(res.n_steps)
+    assert len(stages) == n_stage
+    assert [f["attrs"]["steps"] for f in fibers] == list(res.n_steps)
+    assert all(s["attrs"] == {"kind": "edfa"} for s in stages)
+    if shape == "config2":
+        assert fibers[0]["attrs"]["kind"] == "fiber"
+        assert fibers[0]["attrs"]["steps"] > 10          # adaptive
+    else:
+        kinds = [f["attrs"]["kind"] for f in fibers]
+        assert kinds == ["fiber"] * 20 + ["dbp"] * 20
+        assert all(f["attrs"] == dict(kind=f["attrs"]["kind"], method="o4",
+                                      steps=4) for f in fibers)
+        assert set(order[2:-4]) == {"fiber", "stage"}
+
+
+def test_dsp_wdm_span_tree():
+    """A sweep records one ``call.dsp_wdm`` root; each channel's chain
+    under it, the stacked receivers in ``rx.eye`` (a ``rx.decide`` a
+    channel) and the one read-back of the rows in ``rx.readback``."""
+    prog, bits = _span_link("config2")
+    two = np.stack([bits, bits[::-1]])
+    res, recs = _dsp_recorded(prog, lambda: prog.dsp_wdm(
+        2, bits=two, seed=SEED))
+    off = prog.dsp_wdm(2, bits=two, seed=SEED)
+    assert np.array_equal(res.threshold, off.threshold)
+    assert res.n_steps == off.n_steps
+    (root,) = [r for r in recs if r["parent"] is None]
+    assert root["name"] == "call.dsp_wdm"
+    assert root["attrs"] == {"n": prog.n, "channels": 2}
+    names = [r["name"] for r in recs]
+    assert names.count("tx") == names.count("rx.pd") == 2
+    assert names.count("fiber") == names.count("stage") == 2
+    assert names.count("rx.eye") == names.count("rx.readback") == 1
+    (eye,) = [r for r in recs if r["name"] == "rx.eye"]
+    decides = [r for r in recs if r["name"] == "rx.decide"]
+    assert len(decides) == 2 and all(d["parent"] == eye["id"]
+                                     for d in decides)
+    assert [f["attrs"]["steps"] for f in sorted(
+        (r for r in recs if r["name"] == "fiber"),
+        key=lambda r: r["t0_ns"])] == [s[0] for s in res.n_steps]

@@ -1,12 +1,15 @@
 """The port's profiling hooks (opticomlib_tpu_torch.utils.profiling) on the
 CPU: a Chrome trace of a block with its named region in it, the wall timer,
-and the busy-interval bookkeeping; the names are the JAX module's."""
+the busy-interval bookkeeping, and the span recorder; the public names are
+the JAX module's."""
 import glob
 import json
 import time
+import tracemalloc
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 import torch
 
 from opticomlib_tpu.utils import profiling as jprofiling
@@ -80,3 +83,105 @@ def test_device_busy_is_the_union_of_the_device_intervals():
     assert by_name == {"k1": (12, 2), "k2": (12, 2), "copy": (1, 1)}
     assert profiling.device_busy(SimpleNamespace(events=lambda: [])) == (
         0.0, 0, {})
+
+
+@pytest.fixture
+def recording():
+    """Span recording on for the test, off and drained after it."""
+    profiling.record(True)
+    profiling.drain()
+    yield
+    profiling.record(False)
+
+
+def test_spans_off_record_nothing_and_read_no_clock(monkeypatch):
+    profiling.record(False)
+    assert profiling.drain() == []
+    sp = profiling.span("a", kind="x")
+    assert sp is profiling.span("b")          # one shared object
+    monkeypatch.setattr(profiling, "time", SimpleNamespace(
+        time_ns=lambda: pytest.fail("clock read")))
+    tracemalloc.start()
+    try:
+        for _ in range(10_000):
+            with profiling.span("a", kind="x") as s:
+                s.set(steps=3)
+        held = tracemalloc.take_snapshot().filter_traces(
+            [tracemalloc.Filter(True, profiling.__file__)])
+    finally:
+        tracemalloc.stop()
+    assert sum(st.size for st in held.statistics("filename")) == 0
+    assert profiling.drain() == []
+
+
+def test_span_nesting_gives_parent_and_call(recording):
+    with profiling.span("call.one", n=4) as root:
+        with profiling.span("tx"):
+            pass
+        with profiling.span("fiber", kind="fiber") as f:
+            with profiling.span("inner"):
+                pass
+            f.set(steps=7)
+    with profiling.span("call.two"):
+        with profiling.span("tx"):
+            pass
+    recs = profiling.drain()
+    assert profiling.drain() == []
+    by = {}
+    for r in recs:
+        by.setdefault(r["name"], []).append(r)
+        assert set(r) == {"name", "id", "parent", "call", "t0_ns", "t1_ns",
+                          "attrs"}
+        assert r["t0_ns"] <= r["t1_ns"]
+    one, two = by["call.one"][0], by["call.two"][0]
+    assert one["parent"] is None and one["call"] == one["id"]
+    assert two["parent"] is None and two["call"] == two["id"] != one["id"]
+    assert one["attrs"] == {"n": 4}
+    tx1, tx2 = by["tx"]
+    assert (tx1["parent"], tx1["call"]) == (one["id"], one["id"])
+    assert (tx2["parent"], tx2["call"]) == (two["id"], two["id"])
+    fib, inner = by["fiber"][0], by["inner"][0]
+    assert fib["attrs"] == {"kind": "fiber", "steps": 7}
+    assert (inner["parent"], inner["call"]) == (fib["id"], one["id"])
+    assert one["t0_ns"] <= fib["t0_ns"] <= inner["t0_ns"] <= inner["t1_ns"] \
+        <= fib["t1_ns"] <= one["t1_ns"]
+    # closed inner spans come first
+    assert [r["name"] for r in recs][-1] == "call.two"
+    assert root is not None
+
+
+def test_span_shares_the_clock_of_the_trace(recording):
+    """A span around a torch operation holds that operation's event in a
+    CPU torch.profiler trace: both read one clock."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(2**16)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("mul"):
+            y = torch.mul(x, 3.0)
+    (rec,) = profiling.drain()
+    (ev,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "aten::mul"]
+    assert rec["t0_ns"] <= ev.start_ns()
+    assert ev.start_ns() + ev.duration_ns() <= rec["t1_ns"]
+    assert float(y[0]) == 3.0
+    # no span is a host event of the trace
+    assert not any(e.name() == "mul"
+                   for e in prof.profiler.kineto_results.events())
+
+
+def test_annotate_records_a_span_only_while_recording():
+    profiling.record(False)
+    with profiling.annotate("region"):
+        pass
+    assert profiling.drain() == []
+    profiling.record(True)
+    try:
+        with profiling.annotate("region"):
+            with profiling.span("inside"):
+                pass
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    by = {r["name"]: r for r in recs}
+    assert set(by) == {"region", "inside"}
+    assert by["inside"]["parent"] == by["region"]["id"]
