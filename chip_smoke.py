@@ -966,7 +966,13 @@ def catch_inputs(torch, kernels, caught: dict) -> dict:
     """Wrap :data:`CAUGHT_WRAPPERS` so that the first call with each key
     (shapes, integer arguments, 16-byte alignment of each tensor) keeps a
     copy of its inputs in ``caught``, at the same alignment; returns the
-    originals to put back."""
+    originals to put back.  The receiver's CUDA graphs replay their kernels
+    without calling the wrappers, so the graphs of earlier phases are
+    dropped (each shape's first call runs eagerly again), and a call being
+    captured is not kept."""
+    from opticomlib_tpu_torch.ops import eyeana
+    eyeana._graphs.clear()
+
     def keep(a):
         off = (a.data_ptr() % 16) // a.element_size()
         buf = torch.empty(a.numel() + off, dtype=a.dtype, device=a.device)
@@ -977,7 +983,8 @@ def catch_inputs(torch, kernels, caught: dict) -> dict:
     def wrap(fname, fn):
         def wrapper(*args, **kw):
             tensors = [a for a in args if torch.is_tensor(a)]
-            if tensors and tensors[0].is_cuda:
+            if (tensors and tensors[0].is_cuda
+                    and not torch.cuda.is_current_stream_capturing()):
                 key = (fname,) + tuple(
                     (tuple(a.shape), a.data_ptr() % 16) if torch.is_tensor(a)
                     else a if isinstance(a, int) else None for a in args)
@@ -1920,11 +1927,11 @@ def main() -> None:
         run = prog.run(bits=bits, noise=noise)
         vq = link._adc_quantize(run.v.signal, spec4.adc_bits)
         bits_f32 = torch.as_tensor(bits.astype(np.float32), device=name)
-        m, rth, n_err = link._ook_rx_ingraph(vq, vq[prog.instant::SPS4],
+        e, rth, n_err = link._ook_rx_ingraph(vq, vq[prog.instant::SPS4],
                                              bits_f32, SPS4, 8192, 128)
         res[name] = dict(v=run.v.to_numpy(), vq=vq.cpu().numpy(),
                          steps=run.n_steps, n_err=int(n_err), th=float(rth),
-                         eye=float(m["mu1"] - m["mu0"]), ok=run.rin_ok,
+                         eye=float(e.m["mu1"] - e.m["mu0"]), ok=run.rin_ok,
                          s=time.perf_counter() - t0)
     r_g, r_c = res["cuda"], res["cpu"]
     rel = float(np.linalg.norm(r_g["v"] - r_c["v"]) / np.linalg.norm(r_c["v"]))

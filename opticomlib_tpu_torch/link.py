@@ -64,8 +64,10 @@ from .eyediag import Eye
 from .ops import filters, kernels, pulses, ssfm
 from .models.ppm import (PPM_ENCODER, hdd_positions, positions_to_bits,
                          sdd_positions)
-from .ops.eyeana import (_shortest_int_masked, eye_metrics, eye_window,
-                         linspace)
+from .ops.eyeana import (_at, _shortest_int_masked, eye_metrics, eye_scalars,
+                         eye_window, linspace)
+from .ops.eyeana import pack_rows as _pack_rows
+from .ops.eyeana import unpack_rows as _unpack_rows
 from .ops.noise import as_draw, ase_sigma, gaussian, wiener_phase
 from .ops.prbs import prbs
 from .params import SimParams, check_device, current_device, resolve_params
@@ -373,14 +375,6 @@ def _promote_2pol(f: torch.Tensor) -> torch.Tensor:
     return torch.stack([f, torch.zeros_like(f)]) if f.ndim == 1 else f
 
 
-def _eye_scalars(v, sps, nslots, sps_resamp):
-    """``eye_metrics`` without its traces."""
-    m = eye_metrics(v, sps=sps, nslots=nslots, sps_resamp=sps_resamp)
-    for k in _EYE_TRACE_KEYS:
-        m.pop(k, None)
-    return m
-
-
 def _ook_decide(m, slots, bits_f32):
     """THRESHOLD_EST (the 1000-point scan of ``0.5*[Q((mu1-r)/s1) +
     Q((r-mu0)/s0)]``, in log space so high-SNR tails do not underflow to a
@@ -390,17 +384,19 @@ def _ook_decide(m, slots, bits_f32):
         r = linspace(m["mu0"], m["mu1"], 1000)
         lq1 = torch.special.log_ndtr(-(m["mu1"] - r) / m["s1"])
         lq0 = torch.special.log_ndtr(-(r - m["mu0"]) / m["s0"])
-        rth = r[torch.argmin(torch.logaddexp(lq1, lq0))]
+        rth = _at(r, torch.argmin(torch.logaddexp(lq1, lq0)))
         n_err = ((slots > rth) != (bits_f32 > 0.5)).sum()
     return rth, n_err
 
 
 def _ook_rx_ingraph(v, slots, bits_f32, sps, nslots, sps_resamp):
-    """OOK receiver on the device: eye metrology -> :func:`_ook_decide`
-    (reference ook.py:63-132)."""
-    with span("rx.eye"):
-        m = _eye_scalars(v, sps, nslots, sps_resamp)
-    return (m,) + _ook_decide(m, slots, bits_f32)
+    """OOK receiver on the device: eye metrology (:func:`eye_scalars`) ->
+    :func:`_ook_decide` (reference ook.py:63-132).  Returns
+    ``(EyeScalars, rth, n_err)``, nothing read back."""
+    with span("rx.eye") as sp:
+        eye = eye_scalars(v, sps, nslots, sps_resamp)
+        sp.set(graph=eye.how)
+    return (eye,) + _ook_decide(eye.m, slots, bits_f32)
 
 
 def _ppm_hard_decide(m, slot_samp, info_bits, M, uniform):
@@ -413,7 +409,7 @@ def _ppm_hard_decide(m, slot_samp, info_bits, M, uniform):
     r = linspace(m["mu0"], m["mu1"], 1000)
     log_a = (torch.special.log_ndtr((m["mu1"] - r) / m["s1"])
              + (M - 1) * torch.special.log_ndtr((r - m["mu0"]) / m["s0"]))
-    rth_scan = r[torch.argmax(log_a)]
+    rth_scan = _at(r, torch.argmax(log_a))
     rth = torch.where(torch.isnan(m["threshold"]), rth_scan, m["threshold"])
     on = (slot_samp > rth).to(torch.float32)
     rx_bits = positions_to_bits(hdd_positions(on, M, uniform), M)
@@ -423,9 +419,10 @@ def _ppm_hard_decide(m, slot_samp, info_bits, M, uniform):
 def _ppm_hard_rx_ingraph(v, slot_samp, info_bits, M, sps, nslots,
                          sps_resamp, uniform):
     """Hard-decision M-PPM receiver on the device: eye metrology ->
-    :func:`_ppm_hard_decide`.  Returns ``(eye_scalars, rth, n_err)``."""
-    m = _eye_scalars(v, sps, nslots, sps_resamp)
-    return (m,) + _ppm_hard_decide(m, slot_samp, info_bits, M, uniform)
+    :func:`_ppm_hard_decide`.  Returns ``(EyeScalars, rth, n_err)``."""
+    eye = eye_scalars(v, sps, nslots, sps_resamp)
+    return (eye,) + _ppm_hard_decide(eye.m, slot_samp, info_bits, M,
+                                     uniform)
 
 
 def _ppm_soft_errors(slot_samp, info_bits, M):
@@ -433,44 +430,35 @@ def _ppm_soft_errors(slot_samp, info_bits, M):
     return (rx_bits != info_bits.to(torch.uint8)).sum()
 
 
-def _eye_to_host(m: dict, dt: float) -> Eye:
+def _read_back(eye=None, **cols) -> dict:
+    """One channel's results in one device-to-host copy: the packed row of
+    ``eye`` (an :class:`~opticomlib_tpu_torch.ops.eyeana.EyeScalars` of one
+    channel, or None) and the tensors ``cols``.  Returns every column as a
+    NumPy scalar or array of its dtype."""
+    rows, layout = _pack_rows({k: v.reshape((1,) + v.shape)
+                               for k, v in cols.items()})
+    if eye is not None:
+        rows, layout = torch.cat([eye.rows, rows], 1), eye.layout + layout
+    return {k: v[0] for k, v in _unpack_rows(rows.cpu().numpy(),
+                                             layout).items()}
+
+
+def _eye_to_host(m: dict, dt: float, host: dict) -> Eye:
     """Eye metrics as an :class:`Eye`: 0-d tensors as Python numbers, the
     traces (when present) left as tensors on their device, other tensors as
-    NumPy arrays; NaN ``threshold``/``y_left``/``y_right`` as ``None``."""
+    NumPy arrays; NaN ``threshold``/``y_left``/``y_right`` as ``None``.
+    ``host``: the values of ``m``'s tensors, read back
+    (:func:`_read_back`)."""
     res = {}
     for k, val in m.items():
         if isinstance(val, torch.Tensor) and k not in _EYE_TRACE_KEYS:
-            val = val.item() if val.ndim == 0 else val.cpu().numpy()
+            val = host[k].item() if host[k].ndim == 0 else host[k]
         res[k] = val
     for k in ("threshold", "y_left", "y_right"):
         if res.get(k) is not None and np.isnan(res[k]):
             res[k] = None
     res["dt"] = dt
     return Eye(res)
-
-
-def _pack_rows(cols: dict):
-    """Per-channel results (tensors with a leading channel axis) as one
-    ``(C, K)`` float64 tensor, so that a sweep reads them back, and a mesh
-    gathers them, in one go; returns it with the layout
-    :func:`_unpack_rows` takes."""
-    flat, layout = [], []
-    for k, v in cols.items():
-        layout.append((k, tuple(v.shape[1:]), v.dtype))
-        flat.append(v.reshape(v.shape[0], -1).to(torch.float64))
-    return torch.cat(flat, dim=1), layout
-
-
-def _unpack_rows(host: np.ndarray, layout) -> dict:
-    """The columns of :func:`_pack_rows`' rows (read back) as NumPy arrays
-    of their shapes and dtypes."""
-    out, j = {}, 0
-    for k, shape, dtype in layout:
-        w = int(np.prod(shape))
-        out[k] = host[:, j:j + w].reshape((len(host),) + shape).astype(
-            torch.empty(0, dtype=dtype).numpy().dtype)
-        j += w
-    return out
 
 
 def _steps_rows(steps, device) -> torch.Tensor:
@@ -486,16 +474,17 @@ def _ook_sweep_rows(wins, slots, bits_f32, sps, nslots, sps_resamp,
     launch), then per channel the threshold scan, slicer and error count on
     its slots ``(C, n_bits)``.  Returns :func:`_pack_rows` of the eye
     scalars, ``rth``, ``n_err`` and the ``extra`` columns."""
-    m = _eye_scalars(wins, sps, nslots, sps_resamp)
+    eye = eye_scalars(wins, sps, nslots, sps_resamp)
     rth, n_err = [], []
     for c in range(wins.shape[0]):
-        r, e = _ook_decide({k: m[k][c] for k in ("mu0", "mu1", "s0", "s1")},
+        r, e = _ook_decide({k: eye.m[k][c]
+                            for k in ("mu0", "mu1", "s0", "s1")},
                            slots[c], bits_f32[c])
         rth.append(r)
         n_err.append(e)
-    cols = {k: v for k, v in m.items() if isinstance(v, torch.Tensor)}
-    cols.update(rth=torch.stack(rth), n_err=torch.stack(n_err), **extra)
-    return _pack_rows(cols)
+    rows, layout = _pack_rows(dict(rth=torch.stack(rth),
+                                   n_err=torch.stack(n_err), **extra))
+    return torch.cat([eye.rows, rows], 1), eye.layout + layout
 
 
 def _ppm_sweep_rows(wins, slots, info, M, decision, sps, nslots,
@@ -506,7 +495,7 @@ def _ppm_sweep_rows(wins, slots, info, M, decision, sps, nslots,
     scores).  Returns :func:`_pack_rows` of ``rth``, ``n_err`` and the
     ``extra`` columns."""
     if decision == "hard":
-        m = _eye_scalars(wins, sps, nslots, sps_resamp)
+        m = eye_scalars(wins, sps, nslots, sps_resamp).m
     rth, n_err = [], []
     for c in range(slots.shape[0]):
         if decision == "soft":
@@ -948,14 +937,15 @@ class LinkProgram(torch.nn.Module):
         with span("call.dsp", n=self.n):
             tx, bits_f32 = self._bits(bits, prbs_order)
             out = self(bits_f32, seed=seed, noise=noise)
-            m, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
+            e, rth, n_err = _ook_rx_ingraph(out[0], out[1], bits_f32,
                                             self.params.sps, nslots,
                                             sps_resamp)
             with span("rx.readback"):
-                rin_ok = _rin_ok(out[-1])
-                n_err = int(n_err.item())
-                rth = float(rth.item())
-                eye = _eye_to_host(m, 1.0 / self.params.fs)
+                host = _read_back(e, rth=rth, n_err=n_err, rin_ok=out[-1])
+                rin_ok = _rin_ok(host["rin_ok"])
+                n_err = int(host["n_err"])
+                rth = float(host["rth"])
+                eye = _eye_to_host(e.m, 1.0 / self.params.fs, host)
         return SimpleNamespace(ber=n_err / self.n_bits, n_errors=n_err,
                                threshold=rth, eye=eye, tx=tx,
                                n_steps=out[2], rin_ok=rin_ok)
@@ -973,10 +963,16 @@ class LinkProgram(torch.nn.Module):
         bins them there)."""
         _, bits_f32 = self._bits(bits, prbs_order)
         out = self(bits_f32, seed=seed, noise=noise)
-        m = (eye_metrics if with_traces else _eye_scalars)(
-            out[0], self.params.sps, nslots, sps_resamp)
-        _rin_ok(out[-1])
-        return _eye_to_host(m, 1.0 / self.params.fs)
+        if with_traces:
+            m = eye_metrics(out[0], self.params.sps, nslots, sps_resamp)
+            host = _read_back(rin_ok=out[-1], **{
+                k: v for k, v in m.items() if isinstance(v, torch.Tensor)
+                and k not in _EYE_TRACE_KEYS})
+        else:
+            e = eye_scalars(out[0], self.params.sps, nslots, sps_resamp)
+            m, host = e.m, _read_back(e, rin_ok=out[-1])
+        _rin_ok(host["rin_ok"])
+        return _eye_to_host(m, 1.0 / self.params.fs, host)
 
     # ---- M-PPM ----
     @torch.no_grad()
@@ -1019,15 +1015,17 @@ class LinkProgram(torch.nn.Module):
                    noise=noise)
         eye_obj, rth = None, None
         if decision == "soft":
-            n_err = _ppm_soft_errors(out[1], info, M)
+            host = _read_back(n_err=_ppm_soft_errors(out[1], info, M),
+                              rin_ok=out[-1])
         else:
-            m, rth, n_err = _ppm_hard_rx_ingraph(
+            e, rth, n_err = _ppm_hard_rx_ingraph(
                 out[0], out[1], info, M, self.params.sps, nslots, sps_resamp,
                 _hdd_uniform(seed, n_sym, M, noise, self.device))
-            eye_obj = _eye_to_host(m, 1.0 / self.params.fs)
-            rth = float(rth.item())
-        rin_ok = _rin_ok(out[-1])
-        n_err = int(n_err.item())
+            host = _read_back(e, rth=rth, n_err=n_err, rin_ok=out[-1])
+            eye_obj = _eye_to_host(e.m, 1.0 / self.params.fs, host)
+            rth = float(host["rth"])
+        rin_ok = _rin_ok(host["rin_ok"])
+        n_err = int(host["n_err"])
         return SimpleNamespace(
             ber=n_err / tx.size, n_errors=n_err,
             threshold=(None if rth is None or np.isnan(rth) else rth),
@@ -1168,8 +1166,10 @@ class LinkProgram(torch.nn.Module):
             **_sweep_result(r, n_channels, bits, n_sym * k))
 
 
-def _rin_ok(flag: torch.Tensor) -> bool:
-    ok = bool(flag.item() != 0.0)
+def _rin_ok(flag) -> bool:
+    """The RIN flag (a 0-d tensor, or its value read back) as a bool;
+    warns when a draw was clamped."""
+    ok = bool(float(flag) != 0.0)
     if not ok:
         _warn_rin()
     return ok

@@ -12,8 +12,15 @@ subsets (level split, crossing band, centre window) are boolean masks,
 dynamic-size sorts are full sorts with +inf padding, and the KDE threshold
 is a fixed 4096-bin histogram
 (:func:`opticomlib_tpu_torch.ops.kernels.histogram_rows`) contracted against
-a Gaussian kernel matrix.  Nothing there reads back to the host, so the
-whole receiver queues behind the link on the card.
+a Gaussian kernel matrix.  Nothing there reads back to the host or waits
+for the card: a 0-d index is a device gather, a fallback a ``torch.where``
+on a Python number, and the time axis is made once a shape
+(:func:`_time_grid`), so the whole receiver queues behind the link on the
+card.
+
+:func:`eye_scalars`, the metrology without its traces, replays it on a CUDA
+input as one CUDA graph a shape (:data:`GRAPH_COUNTS`): the same kernels
+in the same order as the eager call, so the same bits.
 
 A ``(C, n)`` input is ``C`` independent channels (the JAX package's ``vmap``
 over ``eye_metrics_jax``): stages 1-6 run channel by channel on the rows, so
@@ -26,7 +33,9 @@ results match (``_shortest_int_masked``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +52,14 @@ __all__ = ["kmeans2_1d", "kmeans2_2d", "kde_min_threshold", "eye_metrics",
 #: ``opticomlib_tpu.ops.eyeana.PLATEAU_TOL``)
 PLATEAU_TOL = 1e-3
 _TINY = float(np.finfo(np.float32).tiny)
+#: bins of the KDE threshold's histogram
+_KDE_BINS = 4096
+
+
+def _at(vals: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``vals[i]`` for a 0-d index tensor ``i``, gathered on the device:
+    indexing by a 0-d tensor would read ``i`` back to the host."""
+    return torch.index_select(vals, 0, i.reshape(1))[0]
 
 
 def linspace(start: torch.Tensor, stop: torch.Tensor, num: int):
@@ -129,7 +146,7 @@ def _shortest_int_masked(y, mask, percent: float = 50.0):
     tie = valid & (torch.abs(diff - dmin) < 1e-10)
     n_tie = torch.clamp(tie.sum(), min=1)
     i = torch.where(tie, idx, 0).sum() // n_tie
-    return ys[i], ys[torch.clamp(i + lag, 0, n - 1)]
+    return _at(ys, i), _at(ys, torch.clamp(i + lag, 0, n - 1))
 
 
 def _kmeans2_2d(t, y, mask, init, iters: int = 32):
@@ -149,7 +166,7 @@ def _kmeans2_2d(t, y, mask, init, iters: int = 32):
     return centers
 
 
-def _kde_min_thresholds(chans, npts: int = 500, nbins: int = 4096):
+def _kde_min_thresholds(chans, npts: int = 500, nbins: int = _KDE_BINS):
     """Scott's-rule Gaussian KDE over each channel's masked window, on an
     ``npts`` grid between its two levels, via a histogram contraction.
     ``chans``: a list of ``(y, mask, mu0, mu1)`` with 1-D ``y`` of one
@@ -181,7 +198,7 @@ def _kde_min_thresholds(chans, npts: int = 500, nbins: int = 4096):
         grid = linspace(mu0, mu1, npts)
         z = (grid[:, None] - centers[None, :]) / bw
         pdf = (torch.exp(-0.5 * z * z) * hist).sum(-1)
-        thr = grid[torch.argmin(pdf)]
+        thr = _at(grid, torch.argmin(pdf))
         ok = ((n_win >= 2) & torch.isfinite(mu0) & torch.isfinite(mu1)
               & (mu0 != mu1) & (bw > 0))
         rng = pdf.max() - pdf.min()
@@ -242,7 +259,7 @@ def shortest_int_hist(y: torch.Tensor, percent: float = 99.99,
 
 
 def _nearest(vals, x):
-    return vals[torch.argmin(torch.abs(vals - x))]
+    return _at(vals, torch.argmin(torch.abs(vals - x)))
 
 
 def eye_window(n: int, sps: int, nslots: int) -> int:
@@ -261,9 +278,28 @@ def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
     ``t``/``y``/``y_top``/``y_bot``/``y_25_75``, all on the input's
     device.  A ``(C, n)`` input is ``C`` channels: every tensor of the
     result gains a leading channel axis, and row ``c`` equals the 1-D call
-    on ``samples[c]``."""
+    on ``samples[c]``.  Always eager (:func:`eye_scalars` is the graphed
+    call without the traces)."""
     rows = samples if samples.ndim == 2 else samples.reshape(1, -1)
-    outs = [_eye_stages(row, sps, nslots, sps_resamp) for row in rows]
+    outs = _eye_rows(rows, sps, nslots, sps_resamp, traces=True)
+    if samples.ndim == 2:
+        return _stacked(outs)
+    out = outs[0]
+    out["t"] = out["t"].clone()  # not the cached grid itself
+    return out
+
+
+#: the JAX package's names of its device engine, the jittable function and
+#: its compiled entry point: here both are :func:`eye_metrics` (the same
+#: arguments; nothing to compile)
+eye_metrics_jax = eye_metrics_jit = eye_metrics
+
+
+def _eye_rows(rows: torch.Tensor, sps: int, nslots: int,
+              sps_resamp: Optional[int], traces: bool) -> list:
+    """Stages 1-8 on each row of ``rows`` ``(C, n)``: a dict a row."""
+    outs = [_eye_stages(row, sps, nslots, sps_resamp, traces)
+            for row in rows]
     # 7. KDE threshold + plateau-width diagnostic, all channels in one launch
     kde = _kde_min_thresholds([o.pop("_kde") for o in outs])
     for out, (thr, plateau) in zip(outs, kde):
@@ -274,24 +310,36 @@ def eye_metrics(samples: torch.Tensor, sps: int, nslots: int = 4096,
             mu0 > 0, 10 * torch.log10(mu1 / mu0),
             torch.where(mu0 == 0, torch.inf, torch.nan))
         out["eye_h"] = mu1 - 3 * out["s1"] - mu0 - 3 * out["s0"]
-    if samples.ndim != 2:
-        return outs[0]
+    return outs
+
+
+def _stacked(outs: list) -> dict:
     return {k: (torch.stack([o[k] for o in outs])
                 if isinstance(v, torch.Tensor) else v)
             for k, v in outs[0].items()}
 
 
-#: the JAX package's names of its device engine, the jittable function and
-#: its compiled entry point: here both are :func:`eye_metrics` (the same
-#: arguments; nothing to compile)
-eye_metrics_jax = eye_metrics_jit = eye_metrics
+def _time_grid(nslots: int, sps: int, device: torch.device) -> torch.Tensor:
+    """The eye's time axis, two slots of ``sps`` samples folded ``nslots //
+    2`` times: the host engine's float64 grid rounded to float32, copied to
+    ``device`` once a ``(nslots, sps, device)`` (the last
+    :data:`GRAPH_CACHE` kept)."""
+    key = (nslots, sps, device)
+    t = _grids.pop(key, None)
+    if t is None:
+        t = np.kron(np.ones(nslots // 2), np.linspace(-1, 1 - 1 / sps, 2 * sps))
+        t = torch.as_tensor(t.astype(np.float32), device=device)
+    _grids[key] = t
+    if len(_grids) > GRAPH_CACHE:
+        _grids.popitem(last=False)
+    return t
 
 
 def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
-                sps_resamp: Optional[int]) -> dict:
-    """Stages 1-6 of :func:`eye_metrics` on one channel; ``"_kde"`` holds
-    stage 7's input ``(y, window, mu0, mu1)``."""
-    dev = samples.device
+                sps_resamp: Optional[int], traces: bool) -> dict:
+    """Stages 1-6 of :func:`eye_metrics` on one channel (the traces only
+    with ``traces``); ``"_kde"`` holds stage 7's input ``(y, window, mu0,
+    mu1)``."""
     y_in = (samples.real if samples.is_complex() else samples).reshape(
         -1).to(torch.float32)
     out: dict = {"sps": sps}
@@ -306,15 +354,12 @@ def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
         y = resample_fft(y_in, nslots * sps_resamp).to(
             torch.float32).contiguous()
         out["sps_resamp"] = sps_resamp
-        t = np.kron(np.ones(nslots // 2),
-                    np.linspace(-1, 1 - 1 / sps_resamp, 2 * sps_resamp))
     else:
         y = y_in
-        t = np.kron(np.ones(nslots // 2),
-                    np.linspace(-1, 1 - 1 / sps, 2 * sps))
-    t = torch.as_tensor(t.astype(np.float32), device=dev)
-    out["y"] = y
-    out["t"] = t
+    t = _time_grid(nslots, sps_resamp or sps, samples.device)
+    if traces:
+        out["y"] = y
+        out["t"] = t
 
     # 3. amplitude bi-level split
     c0, c1 = _kmeans2_1d(y)
@@ -347,21 +392,20 @@ def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
     left = torch.argmin(ty_c[:, 0])
     right = 1 - left
 
-    def _or(value, fallback):
-        return torch.where(have_cross, value,
-                           torch.tensor(fallback, dtype=torch.float32,
-                                        device=dev))
+    def _or(value, fallback: float):
+        return torch.where(have_cross, value, fallback)
 
-    t_left = _or(_nearest(t, ty_c[left, 0]), -0.5)
-    t_right = _or(_nearest(t, ty_c[right, 0]), 0.5)
+    t_left = _or(_nearest(t, _at(ty_c[:, 0], left)), -0.5)
+    t_right = _or(_nearest(t, _at(ty_c[:, 0], right)), 0.5)
     t_center = _or(_nearest(t, ty_c[:, 0].mean()), 0.0)
     out["t_left"] = t_left
     out["t_right"] = t_right
     out["t_opt"] = t_center
     # nearest-value lookups snap to the pre-resample sample values
-    out["y_left"] = _or(_nearest(y_in, ty_c[left, 1]), np.nan)
-    out["y_right"] = _or(_nearest(y_in, ty_c[right, 1]), np.nan)
-    out["y_25_75"] = torch.where(cond, y, torch.nan)
+    out["y_left"] = _or(_nearest(y_in, _at(ty_c[:, 1], left)), np.nan)
+    out["y_right"] = _or(_nearest(y_in, _at(ty_c[:, 1], right)), np.nan)
+    if traces:
+        out["y_25_75"] = torch.where(cond, y, torch.nan)
 
     # 6. center-window statistics
     t_dist = t_right - t_left
@@ -384,8 +428,9 @@ def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
     window = (t_span0 < t) & (t < t_span1)
     top_sel = (y > y_center) & window
     bot_sel = (y < y_center) & window
-    out["y_top"] = torch.where(top_sel, y, torch.nan)
-    out["y_bot"] = torch.where(bot_sel, y, torch.nan)
+    if traces:
+        out["y_top"] = torch.where(top_sel, y, torch.nan)
+        out["y_bot"] = torch.where(bot_sel, y, torch.nan)
 
     out["mu1"] = mu1 = _masked_mean(y, top_sel)
     out["s1"] = s1 = _masked_std(y, top_sel)
@@ -394,6 +439,179 @@ def _eye_stages(samples: torch.Tensor, sps: int, nslots: int,
 
     out["_kde"] = (y, window, mu0, mu1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the scalars alone, replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+#: receiver calls (:func:`eye_scalars`) served by a CUDA graph captured in
+#: the call, by a replay of one, and eagerly (a CPU input, a shape's first
+#: call, a shape whose capture raised, a call inside someone's capture)
+GRAPH_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
+#: graphs (and time grids) kept at once; the least recently used goes first
+GRAPH_CACHE = 8
+_COUNTED = {"capture": "captured", "replay": "replayed", "eager": "eager"}
+_SEEN = "seen"               # a shape's first call ran eagerly
+_graphs: OrderedDict = OrderedDict()   # key -> _SEEN or _Graph
+_no_graph: set = set()                 # keys whose capture raised
+_grids: OrderedDict = OrderedDict()
+_capture_streams: dict = {}
+
+
+class EyeScalars(NamedTuple):
+    """What :func:`eye_scalars` returns."""
+    #: the scalars as tensors (a leading channel axis for a ``(C, n)``
+    #: input) and the ints ``sps`` / ``sps_resamp``
+    m: dict
+    #: the same tensors packed as float64 ``(C, K)`` rows, and the layout
+    #: :func:`unpack_rows` takes: one copy reads them all back
+    rows: torch.Tensor
+    layout: list
+    #: ``"replay"``, ``"capture"`` or ``"eager"``
+    how: str
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    static_in: torch.Tensor
+    out: tuple          # (m, rows, layout) in the graph's memory pool
+    launches: dict      # kernels.LAUNCHES a replay makes
+    held: tuple         # what the graph reads outside its pool
+
+
+def pack_rows(cols: dict):
+    """Per-channel results (tensors with a leading channel axis) as one
+    ``(C, K)`` float64 tensor, so that one copy reads them back, and a mesh
+    gathers them, in one go; returns it with the layout
+    :func:`unpack_rows` takes."""
+    flat, layout = [], []
+    for k, v in cols.items():
+        layout.append((k, tuple(v.shape[1:]), v.dtype))
+        flat.append(v.reshape(v.shape[0], -1).to(torch.float64))
+    return torch.cat(flat, dim=1), layout
+
+
+def unpack_rows(host: np.ndarray, layout) -> dict:
+    """The columns of :func:`pack_rows`' rows (read back) as NumPy arrays
+    of their shapes and dtypes."""
+    out, j = {}, 0
+    for k, shape, dtype in layout:
+        w = int(np.prod(shape))
+        out[k] = host[:, j:j + w].reshape((len(host),) + shape).astype(
+            torch.empty(0, dtype=dtype).numpy().dtype)
+        j += w
+    return out
+
+
+def _scalar_rows(win: torch.Tensor, sps: int, nslots: int,
+                 sps_resamp: Optional[int]) -> tuple:
+    """Stages 1-8 on the rows of the eye window ``win``, no traces:
+    ``(m, rows, layout)`` of :class:`EyeScalars`."""
+    m = _stacked(_eye_rows(win, sps, nslots, sps_resamp, traces=False))
+    rows, layout = pack_rows({k: v for k, v in m.items()
+                              if isinstance(v, torch.Tensor)})
+    return m, rows, layout
+
+
+def eye_scalars(samples: torch.Tensor, sps: int, nslots: int = 4096,
+                sps_resamp: Optional[int] = None) -> EyeScalars:
+    """:func:`eye_metrics` without its traces: the same scalars, bit for
+    bit, as tensors and packed in float64 rows (:class:`EyeScalars`).
+
+    On a CUDA input that no one is capturing, the metrology of each input
+    shape (device, rows, window, dtype, ``sps``, ``nslots``,
+    ``sps_resamp``) runs eagerly on its first call, is captured as a CUDA
+    graph on its second, and from then on is one copy of the eye window
+    into the graph's input and one graph launch, with no read-back.  The
+    tensors returned from a graph live in its memory pool: the next call
+    of that shape overwrites them.  The last :data:`GRAPH_CACHE` shapes
+    keep a graph; a shape whose capture raises stays eager (it warns
+    once).  A CPU input runs eagerly.  :data:`GRAPH_COUNTS` counts each
+    way."""
+    rows = samples if samples.ndim == 2 else samples.reshape(1, -1)
+    win = rows[:, :eye_window(int(rows.shape[1]), sps, nslots)]
+    graph, how = None, "eager"
+    if win.is_cuda and not torch.cuda.is_current_stream_capturing():
+        graph, how = _graph_for(win, sps, nslots, sps_resamp)
+    if graph is None:
+        m, packed, layout = _scalar_rows(win, sps, nslots, sps_resamp)
+    else:
+        graph.static_in.copy_(win)
+        graph.graph.replay()
+        for k, n in graph.launches.items():
+            kernels.LAUNCHES[k] += n
+        m, packed, layout = graph.out
+    GRAPH_COUNTS[_COUNTED[how]] += 1
+    if samples.ndim != 2:
+        m = {k: v[0] if isinstance(v, torch.Tensor) else v
+             for k, v in m.items()}
+    return EyeScalars(m, packed, layout, how)
+
+
+def _graph_for(win: torch.Tensor, sps: int, nslots: int,
+               sps_resamp: Optional[int]) -> tuple:
+    """The graph of ``win``'s shape and how this call uses it: ``(None,
+    "eager")`` on the shape's first call and for a shape whose capture
+    raised, ``(graph, "capture")`` on its second, ``(graph, "replay")``
+    after."""
+    key = (win.device, tuple(win.shape), win.dtype, sps, nslots, sps_resamp)
+    if key in _no_graph:
+        return None, "eager"
+    entry = _graphs.get(key)
+    if entry is None:
+        _graphs[key] = _SEEN
+        if len(_graphs) > GRAPH_CACHE:
+            _graphs.popitem(last=False)
+        return None, "eager"
+    _graphs.move_to_end(key)
+    if entry is not _SEEN:
+        return entry, "replay"
+    try:
+        entry = _graphs[key] = _capture(win, sps, nslots, sps_resamp)
+    except Exception as exc:  # noqa: BLE001 - whatever refused the capture
+        del _graphs[key]
+        _no_graph.add(key)
+        warnings.warn(f"eye_scalars: no CUDA graph for {key} ({exc!r}); "
+                      f"that shape runs eagerly", RuntimeWarning,
+                      stacklevel=3)
+        return None, "eager"
+    return entry, "capture"
+
+
+def _capture(win: torch.Tensor, sps: int, nslots: int,
+             sps_resamp: Optional[int]) -> _Graph:
+    """Capture :func:`_scalar_rows` on an input of ``win``'s shape, on a
+    side stream of ``win``'s device, into a graph of its own pool.  Nothing
+    runs; the caller replays it.  What the graph reads outside its pool
+    (the time grid, the histogram scratch) is made first, and held."""
+    dev = win.device
+    static_in = torch.empty(win.shape, dtype=win.dtype, device=dev)
+    stream = _capture_streams.get(dev)
+    if stream is None:
+        stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+    grid = _time_grid(win.shape[1] // sps, sps_resamp or sps, dev)
+    scratch = kernels.histogram_rows_scratch(win.shape[0], _KDE_BINS, dev,
+                                             stream)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    before = dict(kernels.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.no_grad(), torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                out = _scalar_rows(static_in, sps, nslots, sps_resamp)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+    finally:
+        launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
+        kernels.LAUNCHES.update(before)  # the capture launched nothing
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    return _Graph(graph, static_in, out, launches, (grid, scratch))
 
 
 # ---------------------------------------------------------------------------

@@ -223,13 +223,8 @@ def _hist_launch(rows: bool, t_idx, y_idx, nt: int, ny: int) -> torch.Tensor:
     dev = y_idx.device
     stream = _raw_stream(dev.index)
     need = _hist_scratch_len(rows, nt, ny)
-    scratch = _hist_scratch.get((dev.index, stream))
-    if need and (scratch is None or scratch.numel() < need):
-        # allocated on the stream that will use it
-        with torch.cuda.device(dev):
-            scratch = torch.zeros(max(need, 2**16), dtype=torch.int32,
-                                  device=dev)
-        _hist_scratch[(dev.index, stream)] = scratch
+    # allocated on the stream that will use it
+    scratch = _hist_scratch_for(dev, stream, need)
     out = torch.empty((nt, ny), dtype=torch.float32, device=dev)
     sp, sn = (scratch.data_ptr(), scratch.numel()) if need else (None, 0)
     if rows:
@@ -246,6 +241,31 @@ def _hist_launch(rows: bool, t_idx, y_idx, nt: int, ny: int) -> torch.Tensor:
         _build.check(lib, err, "histogram2d")
     LAUNCHES["histogram2d"] += 1
     return out
+
+
+def _hist_scratch_for(dev: torch.device, stream: int, need: int):
+    """The zeroed scratch of the histogram launches on ``stream`` (a raw
+    stream pointer) of ``dev``, made or grown to ``need`` elements on the
+    current stream; None where the launch needs none."""
+    scratch = _hist_scratch.get((dev.index, stream))
+    if need and (scratch is None or scratch.numel() < need):
+        with torch.cuda.device(dev):
+            scratch = torch.zeros(max(need, 2**16), dtype=torch.int32,
+                                  device=dev)
+        _hist_scratch[(dev.index, stream)] = scratch
+    return scratch
+
+
+def histogram_rows_scratch(nrow: int, ny: int, device,
+                           stream: "torch.cuda.Stream"):
+    """The scratch that a :func:`histogram_rows` launch of ``nrow`` rows
+    and ``ny`` bins on ``stream`` will use, made now (None where it needs
+    none).  For a CUDA graph captured on ``stream``: it is made on the
+    current stream, where the graph's replays run, and the graph holds
+    it."""
+    nrow, ny = _hist_shape(nrow, ny)
+    return _hist_scratch_for(torch.device(device), stream.cuda_stream,
+                             _hist_scratch_len(True, nrow, ny))
 
 
 @functools.lru_cache(maxsize=None)

@@ -772,6 +772,116 @@ def test_span_holds_its_kernel_launch_on_card(cuda_device):
     assert spans.UNLINKED not in cut["busy_by_span"]
 
 
+def _eye_input(rows, n, sps, device, seed):
+    """``(rows, n)`` float32 eye waveforms on ``device``: NRZ smoothed over
+    half a slot, levels 0.05 and 0.95, Gaussian noise."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(0, 2, (rows, n // sps), generator=g, device=device)
+    x = bits.to(torch.float32).repeat_interleave(sps, dim=1)
+    k = torch.full((1, 1, sps // 2), 2.0 / sps, device=device)
+    x = torch.nn.functional.conv1d(x[:, None], k, padding="same")[:, 0]
+    return 0.05 + 0.9 * x + 0.07 * torch.randn(
+        x.shape, generator=g, device=device)
+
+
+def _same(a, b):
+    return torch.equal(torch.nan_to_num(a, nan=7.0),
+                       torch.nan_to_num(b, nan=7.0))
+
+
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """The receiver's graph cache and counter, empty for one test."""
+    from collections import OrderedDict
+
+    from opticomlib_tpu_torch.ops import eyeana
+    monkeypatch.setattr(eyeana, "_graphs", OrderedDict())
+    monkeypatch.setattr(eyeana, "_no_graph", set())
+    monkeypatch.setattr(eyeana, "GRAPH_COUNTS",
+                        dict(captured=0, replayed=0, eager=0))
+    return eyeana
+
+
+@pytest.mark.parametrize("rows,n,sps", [(1, 2**19, 64), (1, 2**17, 16),
+                                        (16, 2**17, 16)])
+def test_eye_graph_replays_bit_equal_to_eager(cuda_device, fresh_graphs,
+                                              rows, n, sps):
+    """The eye of both cells' shapes (8192 slots at sps 64 or 16,
+    resampled to 128) and of a 16-channel sweep: the first call eager, the
+    second captures, the rest replay; every packed scalar of a capture and
+    of a replay equals the eager call's bit for bit, a replay on a new input
+    gives that input's eager answers, and each replay counts its histogram
+    launch."""
+    eyeana = fresh_graphs
+    x, x2 = (_eye_input(rows, n, sps, cuda_device, s) for s in (1, 2))
+    hows, got = [], []
+    for inp in (x, x, x, x2, x):
+        e = eyeana.eye_scalars(inp[0] if rows == 1 else inp, sps, 8192, 128)
+        hows.append(e.how)
+        got.append(e.rows.clone())
+    assert hows == ["eager", "capture", "replay", "replay", "replay"]
+    assert eyeana.GRAPH_COUNTS == dict(captured=1, replayed=3, eager=1)
+    assert kernels.LAUNCHES["histogram2d"] == 5
+    want2 = eyeana._scalar_rows(x2, sps, 8192, 128)[1]
+    torch.cuda.synchronize()
+    assert got[0].shape == (rows, 21)
+    for g in (got[1], got[2], got[4]):
+        assert _same(g, got[0])
+    assert _same(got[3], want2) and not _same(got[3], got[0])
+
+
+def test_dsp_receiver_replays_its_eye_and_reads_back_once(
+        cuda_device, fresh_graphs):
+    """``dsp`` at the ``ook_50km`` cell's eye shape (8192 slots at sps 64,
+    resampled to 128): the third call replays the eye's graph, as one graph
+    launch inside the ``rx.eye`` span with no device-to-host copy there,
+    and the whole receiver reads back once; its answers equal the eager
+    first call's."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from opticomlib_tpu_torch.utils import profiling
+    from perfbench.pbcore import spans
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=-18.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9)
+    prog = link.build_link(spec, 2**13, SimParams.create(
+        sps=64, R=10e9, _warn=False), device=cuda_device)
+    bits = prbs(15, length=2**13)[0]
+    first = [prog.dsp(bits=bits, seed=3) for _ in range(2)]
+    profiling.record(True)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            on = time.time_ns()
+            res = prog.dsp(bits=bits, seed=3)
+            off = time.time_ns()
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    assert fresh_graphs.GRAPH_COUNTS == dict(captured=1, replayed=1,
+                                             eager=1)
+    (eye_span,) = [r for r in recs if r["name"] == "rx.eye"]
+    assert eye_span["attrs"]["graph"] == "replay"
+    cut = spans.by_span(prof, recs, (on, off))
+    assert cut["calls"] == 1
+    assert {k: v for k, v in cut["readbacks_by_span"].items()
+            if k.startswith("rx.")} == {"rx.readback": 1}
+    graph_launches = [
+        e for e in spans._events(prof) if not e[1] and "GraphLaunch" in e[0]
+        and eye_span["t0_ns"] <= e[2] and e[3] <= eye_span["t1_ns"]]
+    assert len(graph_launches) == 1, graph_launches
+    for r in first:
+        assert (r.n_errors, r.threshold, r.rin_ok) == (
+            res.n_errors, res.threshold, res.rin_ok)
+        for k in ("mu0", "mu1", "s0", "s1", "t_opt", "i", "er", "eye_h",
+                  "threshold_plateau", "y_left", "y_right"):
+            a, b = getattr(r.eye, k), getattr(res.eye, k)
+            assert a == b or (a is None and b is None) or (
+                np.isnan(a) and np.isnan(b)), k
+        assert np.array_equal(r.eye.top_int, res.eye.top_int)
+
+
 def _fbg_inputs(n, kL, apodization, F, device):
     """The ``fbg_rk4`` arguments of a grating over n bins of the staged
     chain's grid (fs = 640 GHz, f0 at 1550 nm), made by the code

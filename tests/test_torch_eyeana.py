@@ -9,6 +9,7 @@ sampling instant ``i`` exactly.  The KDE histogram goes through the port's
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from opticomlib_tpu.ops import eyeana as jeye
 from opticomlib_tpu_torch.ops import eyeana as teye
@@ -100,3 +101,91 @@ def test_shortest_int_masked_matches_jax():
     lo_t, hi_t = teye._shortest_int_masked(torch.from_numpy(y),
                                            torch.from_numpy(mask), 50)
     assert (lo_t.item(), hi_t.item()) == (float(lo_j), float(hi_j))
+
+
+class _HostReads(TorchDispatchMode):
+    """Counts the operations that wait for the card: a tensor read back
+    to a Python number (``_local_scalar_dense``: ``.item()``, an index by a
+    0-d tensor) and a tensor made from host data (``lift_fresh``: on the
+    card, a host-to-device copy)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if name in ("_local_scalar_dense", "lift_fresh"):
+            self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _same(a, b):
+    return torch.equal(torch.nan_to_num(a, nan=7.0),
+                       torch.nan_to_num(b, nan=7.0))
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+@pytest.mark.parametrize("sps_resamp", [None, 32])
+def test_eye_and_decide_wait_for_nothing(rows, sps_resamp):
+    """The scalars path of the receiver (``eye_scalars``, then
+    ``link._ook_decide``) reads nothing back and copies nothing from the
+    host, so a CUDA graph can hold it; it gives ``eye_metrics``' scalars bit
+    for bit, and its packed rows hold the same values."""
+    from opticomlib_tpu_torch import link
+    y = np.stack([_waveform(n_bits=256, seed=s)[0] for s in range(rows)])
+    x = torch.from_numpy(y if rows > 1 else y[0])
+    teye.eye_scalars(x, sps=16, nslots=1024, sps_resamp=sps_resamp)
+    with _HostReads() as reads:
+        e = teye.eye_scalars(x, sps=16, nslots=1024, sps_resamp=sps_resamp)
+        for c in range(rows):
+            m = {k: e.m[k] if rows == 1 else e.m[k][c]
+                 for k in ("mu0", "mu1", "s0", "s1")}
+            slots = x.reshape(rows, -1)[c, 8::16]
+            link._ook_decide(m, slots, (slots > 0.5).to(torch.float32))
+    assert reads.counts == {}
+    assert e.how == "eager" and e.rows.shape[0] == rows
+    full = teye.eye_metrics(x, sps=16, nslots=1024, sps_resamp=sps_resamp)
+    host = teye.unpack_rows(e.rows.numpy(), e.layout)
+    assert list(host) == [k for k, v in full.items()
+                          if isinstance(v, torch.Tensor)
+                          and k not in ("y", "t", "y_top", "y_bot",
+                                        "y_25_75")]
+    for k in host:
+        assert _same(e.m[k], full[k]), k
+        assert e.m[k].dtype == full[k].dtype, k
+        np.testing.assert_array_equal(
+            host[k].reshape(e.m[k].shape), e.m[k].numpy(), err_msg=k)
+
+
+def _fallback_input(case):
+    y, sps = _waveform()
+    if case == "constant":
+        return np.full_like(y, 0.7)
+    if case == "no_crossing":   # two levels, no sample between 25 and 75 %
+        bits = np.random.default_rng(5).integers(0, 2, y.size // sps)
+        return (0.05 + 0.9 * np.repeat(bits, sps)).astype(np.float32)
+    return np.where(np.arange(y.size) % 997 == 0, np.nan, y).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("case", ["constant", "no_crossing", "nan"])
+def test_fallback_inputs_match_jax_and_wait_for_nothing(case):
+    """The inputs that take the fallbacks (no crossing band: the default
+    crossing times and NaN levels; a constant waveform; NaN samples) give
+    the JAX device engine's scalars, as ``test_eye_metrics_match_jax``
+    holds them, with nothing read back on the way."""
+    y = _fallback_input(case)
+    mj = jeye.eye_metrics_jit(y, sps=16, nslots=1024, sps_resamp=None)
+    x = torch.from_numpy(y)
+    teye.eye_scalars(x, sps=16, nslots=1024)
+    with _HostReads() as reads:
+        mt = teye.eye_scalars(x, sps=16, nslots=1024).m
+    assert reads.counts == {}
+    for k in SCALARS:
+        np.testing.assert_allclose(mt[k].item(), float(mj[k]), rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+    assert int(mt["i"]) == int(mj["i"])
+    if case == "no_crossing":
+        assert (mt["t_left"].item(), mt["t_right"].item()) == (-0.5, 0.5)
+        assert np.isnan(mt["y_left"].item())
