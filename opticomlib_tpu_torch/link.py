@@ -403,31 +403,41 @@ def _ppm_hard_decide(m, slot_samp, info_bits, M, uniform):
     """KDE threshold (falling back to the log-space M-PPM THRESHOLD_EST
     scan, reference ppm.py:261-305, where the KDE fails) -> slicer -> HDD
     repair scored by ``uniform`` -> decode -> error count, from one
-    channel's eye scalars (reference ppm.py:390-405, 419-577)."""
-    # argmin 1 - Q((r-mu1)/s1) * (1-Q((r-mu0)/s0))^(M-1) == argmax
-    # log Q((r-mu1)/s1) + (M-1) log(1-Q((r-mu0)/s0)), log Q(x) = log_ndtr(-x)
-    r = linspace(m["mu0"], m["mu1"], 1000)
-    log_a = (torch.special.log_ndtr((m["mu1"] - r) / m["s1"])
-             + (M - 1) * torch.special.log_ndtr((r - m["mu0"]) / m["s0"]))
-    rth_scan = _at(r, torch.argmax(log_a))
-    rth = torch.where(torch.isnan(m["threshold"]), rth_scan, m["threshold"])
-    on = (slot_samp > rth).to(torch.float32)
-    rx_bits = positions_to_bits(hdd_positions(on, M, uniform), M)
-    return rth, (rx_bits != info_bits.to(torch.uint8)).sum()
+    channel's eye scalars (reference ppm.py:390-405, 419-577).  Returns
+    ``(rth, n_err, n_rep)``, ``n_rep`` the symbols the repair had to
+    decide (zero, or two or more, slots above the threshold)."""
+    with span("rx.decide"):
+        # argmin 1 - Q((r-mu1)/s1) * (1-Q((r-mu0)/s0))^(M-1) == argmax
+        # log Q((r-mu1)/s1) + (M-1) log(1-Q((r-mu0)/s0)),
+        # log Q(x) = log_ndtr(-x)
+        r = linspace(m["mu0"], m["mu1"], 1000)
+        log_a = (torch.special.log_ndtr((m["mu1"] - r) / m["s1"])
+                 + (M - 1) * torch.special.log_ndtr((r - m["mu0"]) / m["s0"]))
+        rth_scan = _at(r, torch.argmax(log_a))
+        rth = torch.where(torch.isnan(m["threshold"]), rth_scan,
+                          m["threshold"])
+        on = (slot_samp > rth).to(torch.float32)
+        n_rep = (on.reshape(-1, M).sum(1) != 1).sum()
+        rx_bits = positions_to_bits(hdd_positions(on, M, uniform), M)
+        return rth, (rx_bits != info_bits.to(torch.uint8)).sum(), n_rep
 
 
 def _ppm_hard_rx_ingraph(v, slot_samp, info_bits, M, sps, nslots,
                          sps_resamp, uniform):
     """Hard-decision M-PPM receiver on the device: eye metrology ->
-    :func:`_ppm_hard_decide`.  Returns ``(EyeScalars, rth, n_err)``."""
-    eye = eye_scalars(v, sps, nslots, sps_resamp)
+    :func:`_ppm_hard_decide`.  Returns ``(EyeScalars, rth, n_err,
+    n_rep)``, nothing read back."""
+    with span("rx.eye") as sp:
+        eye = eye_scalars(v, sps, nslots, sps_resamp)
+        sp.set(graph=eye.how)
     return (eye,) + _ppm_hard_decide(eye.m, slot_samp, info_bits, M,
                                      uniform)
 
 
 def _ppm_soft_errors(slot_samp, info_bits, M):
-    rx_bits = positions_to_bits(sdd_positions(slot_samp, M), M)
-    return (rx_bits != info_bits.to(torch.uint8)).sum()
+    with span("rx.decide"):
+        rx_bits = positions_to_bits(sdd_positions(slot_samp, M), M)
+        return (rx_bits != info_bits.to(torch.uint8)).sum()
 
 
 def _read_back(eye=None, **cols) -> dict:
@@ -492,11 +502,14 @@ def _ppm_sweep_rows(wins, slots, info, M, decision, sps, nslots,
     """The M-PPM receivers of ``C`` channels (soft: per-symbol argmax;
     hard: eye metrology on the stacked windows, one histogram launch, then
     per channel :func:`_ppm_hard_decide` with ``uniform(c)`` as its HDD
-    scores).  Returns :func:`_pack_rows` of ``rth``, ``n_err`` and the
-    ``extra`` columns."""
+    scores).  Returns :func:`_pack_rows` of ``rth``, ``n_err``, for the
+    hard receiver ``n_rep``, and the ``extra`` columns."""
     if decision == "hard":
-        m = eye_scalars(wins, sps, nslots, sps_resamp).m
-    rth, n_err = [], []
+        with span("rx.eye") as sp:
+            eye = eye_scalars(wins, sps, nslots, sps_resamp)
+            sp.set(graph=eye.how)
+        m = eye.m
+    rth, n_err, n_rep = [], [], []
     for c in range(slots.shape[0]):
         if decision == "soft":
             r = torch.full((), torch.nan, device=slots.device)
@@ -504,11 +517,15 @@ def _ppm_sweep_rows(wins, slots, info, M, decision, sps, nslots,
         else:
             m_c = {k: m[k][c] for k in ("mu0", "mu1", "s0", "s1",
                                         "threshold")}
-            r, e = _ppm_hard_decide(m_c, slots[c], info[c], M, uniform(c))
+            r, e, p = _ppm_hard_decide(m_c, slots[c], info[c], M,
+                                       uniform(c))
+            n_rep.append(p)
         rth.append(r)
         n_err.append(e)
-    return _pack_rows(dict(rth=torch.stack(rth), n_err=torch.stack(n_err),
-                           **extra))
+    cols = dict(rth=torch.stack(rth), n_err=torch.stack(n_err))
+    if n_rep:
+        cols["n_rep"] = torch.stack(n_rep)
+    return _pack_rows(dict(cols, **extra))
 
 
 def _hdd_uniform(seed: int, n_sym: int, M: int, noise, device):
@@ -576,6 +593,16 @@ def _sweep_result(host_rows: dict, n_channels: int, bits, per_channel_bits):
                 rin_ok=rin_ok,
                 n_steps=[tuple(int(x) for x in row)
                          for row in host_rows["steps"]])
+
+
+def _ppm_result(host_rows: dict, M: int, decision: str) -> dict:
+    """What every M-PPM sweep returns besides :func:`_sweep_result`: ``M``,
+    the decision, the thresholds and ``n_repaired`` (``None`` for the soft
+    receiver)."""
+    rth, n_rep = host_rows["rth"], host_rows.get("n_rep")
+    return dict(M=M, decision=decision,
+                threshold=None if np.isnan(rth).all() else rth,
+                n_repaired=None if n_rep is None else n_rep.astype(np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -998,36 +1025,46 @@ class LinkProgram(torch.nn.Module):
           reference's ``np.random`` symbol repair becomes a uniform score a
           slot, ``noise["hdd"]`` or a draw keyed by ``seed``.
 
-        Only ``n_errors``, the threshold and the eye scalars are read
-        back; ``tx`` is the information bits as a ``BinarySequence``."""
+        Only ``n_errors``, ``n_repaired``, the threshold and the eye
+        scalars are read back, in one copy; ``tx`` is the information bits
+        as a ``BinarySequence``.  ``n_repaired`` (hard only, else None):
+        the symbols whose slicer output had zero, or two or more, ON slots,
+        which the HDD repair decided."""
         decision, k, n_sym = _ppm_shape(self.n_bits, M, decision)
-        if bits is None:
-            bits = prbs(prbs_order, length=n_sym * k)[0]
-        tx = BinarySequence(np.asarray(bits).reshape(-1))
-        if tx.size != n_sym * k:
-            raise ValueError(
-                f"need {n_sym * k} information bits for {n_sym} symbols "
-                f"of M={M}, got {tx.size}")
-        slots_tx = PPM_ENCODER(tx, M)
-        info = torch.as_tensor(tx.data, device=self.device)
-        out = self(torch.as_tensor(slots_tx.data.astype(np.float32),
-                                   device=self.device), seed=seed,
-                   noise=noise)
-        eye_obj, rth = None, None
-        if decision == "soft":
-            host = _read_back(n_err=_ppm_soft_errors(out[1], info, M),
-                              rin_ok=out[-1])
-        else:
-            e, rth, n_err = _ppm_hard_rx_ingraph(
-                out[0], out[1], info, M, self.params.sps, nslots, sps_resamp,
-                _hdd_uniform(seed, n_sym, M, noise, self.device))
-            host = _read_back(e, rth=rth, n_err=n_err, rin_ok=out[-1])
-            eye_obj = _eye_to_host(e.m, 1.0 / self.params.fs, host)
-            rth = float(host["rth"])
-        rin_ok = _rin_ok(host["rin_ok"])
-        n_err = int(host["n_err"])
+        with span("call.dsp_ppm", n=self.n, M=M, decision=decision) as root:
+            if bits is None:
+                bits = prbs(prbs_order, length=n_sym * k)[0]
+            tx = BinarySequence(np.asarray(bits).reshape(-1))
+            if tx.size != n_sym * k:
+                raise ValueError(
+                    f"need {n_sym * k} information bits for {n_sym} "
+                    f"symbols of M={M}, got {tx.size}")
+            slots_tx = PPM_ENCODER(tx, M)
+            info = torch.as_tensor(tx.data, device=self.device)
+            out = self(torch.as_tensor(slots_tx.data.astype(np.float32),
+                                       device=self.device), seed=seed,
+                       noise=noise)
+            eye_obj, rth, n_rep = None, None, None
+            if decision == "soft":
+                n_err = _ppm_soft_errors(out[1], info, M)
+                with span("rx.readback"):
+                    host = _read_back(n_err=n_err, rin_ok=out[-1])
+            else:
+                e, rth, n_err, n_rep = _ppm_hard_rx_ingraph(
+                    out[0], out[1], info, M, self.params.sps, nslots,
+                    sps_resamp, _hdd_uniform(seed, n_sym, M, noise,
+                                             self.device))
+                with span("rx.readback"):
+                    host = _read_back(e, rth=rth, n_err=n_err, n_rep=n_rep,
+                                      rin_ok=out[-1])
+                    eye_obj = _eye_to_host(e.m, 1.0 / self.params.fs, host)
+                rth = float(host["rth"])
+                n_rep = int(host["n_rep"])
+                root.set(n_repaired=n_rep)
+            rin_ok = _rin_ok(host["rin_ok"])
+            n_err = int(host["n_err"])
         return SimpleNamespace(
-            ber=n_err / tx.size, n_errors=n_err,
+            ber=n_err / tx.size, n_errors=n_err, n_repaired=n_rep,
             threshold=(None if rth is None or np.isnan(rth) else rth),
             eye=eye_obj, tx=tx, slots_tx=slots_tx, M=M, decision=decision,
             n_steps=out[2], rin_ok=rin_ok)
@@ -1142,28 +1179,33 @@ class LinkProgram(torch.nn.Module):
         segments by default), encoded once on the host with
         ``PPM_ENCODER``.  Channel ``c`` uses the noise stream ``seed + c``
         (``noise``: a list of per-channel draw dicts).  ``mesh``/``axis``
-        spread the channels over ranks as for :meth:`dsp_wdm`."""
+        spread the channels over ranks as for :meth:`dsp_wdm`.
+        ``n_repaired``: :meth:`dsp_ppm`'s, one a channel (hard only, else
+        None), read back with the rest."""
         decision, k, n_sym = _ppm_shape(self.n_bits, M, decision)
-        bits = _sweep_bits(bits, n_channels, n_sym * k,
-                           prbs_order).astype(np.uint8)
-        slots_tx = np.stack([PPM_ENCODER(bits[c], M).data.astype(np.float32)
-                             for c in range(n_channels)])
-        mine = self._channels(n_channels, mesh, axis)
-        wins, slots, steps, flags = self._sweep(slots_tx, seed, noise,
-                                                nslots, mesh, axis)
-        rows, layout = _ppm_sweep_rows(
-            wins, slots, torch.as_tensor(bits[mine], device=self.device), M,
-            decision, self.params.sps, nslots, sps_resamp,
-            lambda c: _hdd_uniform(
-                seed + mine[c], n_sym, M,
-                None if noise is None else noise[mine[c]], self.device),
-            dict(rin_ok=flags, steps=_steps_rows(steps, self.device)))
-        r = _gathered_rows(rows, layout, mesh, axis)
-        rth = r["rth"]
-        return SimpleNamespace(
-            M=M, decision=decision,
-            threshold=(None if np.isnan(rth).all() else rth),
-            **_sweep_result(r, n_channels, bits, n_sym * k))
+        with span("call.dsp_wdm_ppm", n=self.n, channels=n_channels, M=M,
+                  decision=decision) as root:
+            bits = _sweep_bits(bits, n_channels, n_sym * k,
+                               prbs_order).astype(np.uint8)
+            slots_tx = np.stack([PPM_ENCODER(bits[c], M).data.astype(
+                np.float32) for c in range(n_channels)])
+            mine = self._channels(n_channels, mesh, axis)
+            wins, slots, steps, flags = self._sweep(slots_tx, seed, noise,
+                                                    nslots, mesh, axis)
+            rows, layout = _ppm_sweep_rows(
+                wins, slots, torch.as_tensor(bits[mine], device=self.device),
+                M, decision, self.params.sps, nslots, sps_resamp,
+                lambda c: _hdd_uniform(
+                    seed + mine[c], n_sym, M,
+                    None if noise is None else noise[mine[c]], self.device),
+                dict(rin_ok=flags, steps=_steps_rows(steps, self.device)))
+            with span("rx.readback"):
+                r = _gathered_rows(rows, layout, mesh, axis)
+            out = _ppm_result(r, M, decision)
+            if out["n_repaired"] is not None:
+                root.set(n_repaired=int(out["n_repaired"].sum()))
+            return SimpleNamespace(
+                **out, **_sweep_result(r, n_channels, bits, n_sym * k))
 
 
 def _rin_ok(flag) -> bool:

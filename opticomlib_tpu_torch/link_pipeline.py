@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from .link import (LinkProgram, LinkSpec, _gathered_rows, _hdd_uniform,
-                   _injected, _ook_sweep_rows, _ppm_shape, _ppm_sweep_rows,
-                   _sweep_bits, _warn_rin)
+                   _injected, _ook_sweep_rows, _ppm_result, _ppm_shape,
+                   _ppm_sweep_rows, _sweep_bits, _warn_rin)
 from .models.ppm import PPM_ENCODER
 from .ops.eyeana import eye_window
 from .ops.noise import gaussian, keyed_generator
@@ -178,7 +178,8 @@ class PipelinedLinkProgram(torch.nn.Module):
         of :meth:`dsp_wdm` (soft: per-symbol argmax; hard: eye metrology on
         the stacked windows, the KDE/scan threshold, the slicer and the HDD
         repair scored by ``seed + c`` or ``noise[c]["hdd"]``).  ``bits``:
-        the information bits ``(n_channels, n_sym*log2(M))``."""
+        the information bits ``(n_channels, n_sym*log2(M))``;
+        ``n_repaired`` as :meth:`LinkProgram.dsp_wdm_ppm` returns it."""
         decision, k, n_sym = _ppm_shape(self.n_bits, M, decision)
         mine = self._channels(n_channels)
         bits = _sweep_bits(bits, n_channels, n_sym * k,
@@ -194,10 +195,8 @@ class PipelinedLinkProgram(torch.nn.Module):
                 None if noise is None else noise[mine[j]], self.device),
             dict(rin_ok=flags))
         r = _gathered_rows(rows, layout, self.mesh, self.span_axis)
-        rth = r["rth"]
         return SimpleNamespace(
-            M=M, decision=decision,
-            threshold=(None if np.isnan(rth).all() else rth),
+            **_ppm_result(r, M, decision),
             **self._result(r, n_channels, bits, n_sym * k))
 
     @staticmethod

@@ -62,8 +62,8 @@ from scipy.constants import e, k as kB, pi
 from .eyediag import Eye
 from .link import (LinkProgram, LinkSpec, _circular_zero_phase_spectrum,
                    _gathered_rows, _hdd_uniform, _ook_sweep_rows,
-                   _ppm_shape, _ppm_sweep_rows, _pulse_taps, _stage_plan,
-                   _sweep_bits, _sweep_result, _warn_rin)
+                   _ppm_result, _ppm_shape, _ppm_sweep_rows, _pulse_taps,
+                   _stage_plan, _sweep_bits, _sweep_result, _warn_rin)
 from .models.ppm import PPM_ENCODER
 from .ops import filters, kernels, pulses
 from .ops.eyeana import eye_window, shortest_int_hist
@@ -636,7 +636,8 @@ class ShardedLinkProgram(torch.nn.Module):
         ``(n_channels, n_sym*log2(M))``, encoded on the host; soft decisions
         by per-symbol argmax, hard ones by eye metrology on the window
         gathered over 'time', the KDE/scan threshold, the slicer and the
-        HDD repair (scores keyed by ``seed + c``, or ``noise[c]["hdd"]``)."""
+        HDD repair (scores keyed by ``seed + c``, or ``noise[c]["hdd"]``);
+        ``n_repaired`` as :meth:`LinkProgram.dsp_wdm_ppm` returns it."""
         decision, k, n_sym = _ppm_shape(self.n_bits, M, decision)
         bits = _sweep_bits(bits, n_channels, n_sym * k,
                            prbs_order).astype(np.uint8)
@@ -657,8 +658,6 @@ class ShardedLinkProgram(torch.nn.Module):
                                    self.device),
             dict(rin_ok=rin_ok, steps=steps))
         r = _gathered_rows(rows, layout, self.mesh, self.wdm_axis)
-        rth = r["rth"]
         return SimpleNamespace(
-            M=M, decision=decision,
-            threshold=(None if np.isnan(rth).all() else rth),
+            **_ppm_result(r, M, decision),
             **_sweep_result(r, n_channels, bits, n_sym * k))

@@ -461,8 +461,11 @@ def check_ppm_soft_and_hard(ctx):
             assert sw.threshold is not None
             np.testing.assert_allclose(sw.threshold, sw0.threshold,
                                        rtol=1e-3, atol=1e-6)
+            assert sw.n_repaired.shape == (8,)
+            np.testing.assert_array_equal(sw.n_repaired, sw0.n_repaired)
         else:
             assert sw.threshold is None
+            assert sw.n_repaired is None and sw0.n_repaired is None
     return {}
 
 

@@ -443,6 +443,7 @@ def check_dsp_wdm_ppm(ctx):
                                   sw.n_errors)
     sw0 = _unsharded(spec, n_sym * M).dsp_wdm_ppm(4, M=M, bits=sw.tx, seed=0)
     np.testing.assert_array_equal(sw0.ber, sw.ber)
+    assert sw.n_repaired is None and sw0.n_repaired is None
     return {}
 
 
@@ -463,6 +464,8 @@ def check_wdm_ppm_hard(ctx):
     np.testing.assert_array_equal(sw0.ber, sw.ber)
     np.testing.assert_allclose(sw0.threshold, sw.threshold, rtol=1e-3,
                                atol=1e-6)
+    assert sw.n_repaired.shape == (4,) and sw.n_repaired.dtype == np.int64
+    np.testing.assert_array_equal(sw0.n_repaired, sw.n_repaired)
     return {}
 
 

@@ -882,6 +882,55 @@ def test_dsp_receiver_replays_its_eye_and_reads_back_once(
         assert np.array_equal(r.eye.top_int, res.eye.top_int)
 
 
+def test_dsp_ppm_hard_replays_its_eye_and_reads_back_once(
+        cuda_device, fresh_graphs):
+    """``dsp_ppm(8, "hard")`` at the ``ppm8_20km`` cell's eye shape (8192
+    slots at sps 32, unresampled; a 1-in-8 waveform): the third call
+    replays the eye's graph inside the ``rx.eye`` span, the ``call.dsp_ppm``
+    root holds the call, the receiver reads back once (``n_repaired`` with
+    the rest), and the answers equal the eager first call's."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from opticomlib_tpu_torch.utils import profiling
+    from perfbench.pbcore import spans
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=-19.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        stages=(link.BPFSpec(BW=15e9),))
+    n_sym = 2**11
+    prog = link.build_link(spec, n_sym * 8, SimParams.create(
+        sps=32, R=10e9, _warn=False), device=cuda_device)
+    bits = prbs(15, length=n_sym * 3)[0]
+    first = [prog.dsp_ppm(8, "hard", bits=bits, seed=3) for _ in range(2)]
+    profiling.record(True)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            on = time.time_ns()
+            res = prog.dsp_ppm(8, "hard", bits=bits, seed=3)
+            off = time.time_ns()
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    assert fresh_graphs.GRAPH_COUNTS == dict(captured=1, replayed=1,
+                                             eager=1)
+    (eye_span,) = [r for r in recs if r["name"] == "rx.eye"]
+    assert eye_span["attrs"]["graph"] == "replay"
+    (root,) = [r for r in recs if r["parent"] is None]
+    assert root["name"] == "call.dsp_ppm"
+    assert root["attrs"]["n_repaired"] == res.n_repaired > 0
+    cut = spans.by_span(prof, recs, (on, off))
+    assert cut["calls"] == 1
+    assert {k: v for k, v in cut["readbacks_by_span"].items()
+            if k.startswith("rx.")} == {"rx.readback": 1}
+    for r in first:
+        assert (r.n_errors, r.n_repaired, r.threshold, r.rin_ok) == (
+            res.n_errors, res.n_repaired, res.threshold, res.rin_ok)
+        for k in ("mu0", "mu1", "s0", "s1", "threshold_plateau"):
+            assert getattr(r.eye, k) == getattr(res.eye, k), k
+
+
 def _fbg_inputs(n, kL, apodization, F, device):
     """The ``fbg_rk4`` arguments of a grating over n bins of the staged
     chain's grid (fs = 640 GHz, f0 at 1550 nm), made by the code

@@ -2,6 +2,7 @@
 CPU: a Chrome trace of a block with its named region in it, the wall timer,
 the busy-interval bookkeeping, and the span recorder; the public names are
 the JAX module's."""
+import gc
 import glob
 import json
 import time
@@ -101,6 +102,13 @@ def test_spans_off_record_nothing_and_read_no_clock(monkeypatch):
     assert sp is profiling.span("b")          # one shared object
     monkeypatch.setattr(profiling, "time", SimpleNamespace(
         time_ns=lambda: pytest.fail("clock read")))
+    # A garbage collection inside the loop would run the finalizers of
+    # whatever earlier tests of the process left in reference cycles (and
+    # the gc callback JAX registers): what they allocate is traced to the
+    # frame that was running, a span's.  So the garbage goes first, and no
+    # collection runs while the spans are counted.
+    gc.collect()
+    gc.disable()
     tracemalloc.start()
     try:
         for _ in range(10_000):
@@ -110,6 +118,7 @@ def test_spans_off_record_nothing_and_read_no_clock(monkeypatch):
             [tracemalloc.Filter(True, profiling.__file__)])
     finally:
         tracemalloc.stop()
+        gc.enable()
     assert sum(st.size for st in held.statistics("filename")) == 0
     assert profiling.drain() == []
 
