@@ -47,9 +47,12 @@ It checks them in phases, one line each; any failure exits non-zero:
    window and on uniform bins, at (16, 4096) and (16, 8192), by pairs at
    (256, 256), (16, 8192) and a table on the global-atomic path, all-masked
    and empty input, indices out of range on both sides, odd lengths and
-   views 4, 8 and 12 bytes off a 16-byte boundary), and is timed beside it
-   and, where one PyTorch call computes the same function, beside that call
-   (median of 20 runs, CUDA events);
+   views 4, 8 and 12 bytes off a 16-byte boundary; the adaptive step's
+   ``spectral_phase`` and ``cmul_max`` / ``power_max`` bit for bit at
+   2^24, an odd length, two rows and views 8 bytes off), and is timed
+   beside it and, where one PyTorch call computes the same function,
+   beside that call, and the fused kernels beside the composed passes they
+   replace (median of 20 runs, CUDA events);
 3. config 2 at 2^20 samples runs on the card and on the CPU on the same
    numpy noise draws, and the two agree;
 4. config 2 at full size runs once through the kernels (launch counters)
@@ -109,8 +112,8 @@ It checks them in phases, one line each; any failure exits non-zero:
     named; each wall time beside the unsharded call's and beside that
     call's steps alone (its phase grid kept on the card);
 17. profiling: one config-2 ``dsp`` under ``trace`` with ``annotate("ssfm")``
-    around the fiber: the Chrome trace holds the region and the
-    ``nl_halfstep`` kernel; ``DeviceTimer`` agrees with CUDA events on that
+    around the fiber: the Chrome trace holds the region, the
+    ``nl_halfstep`` kernel and the fused step's two kernels; ``DeviceTimer`` agrees with CUDA events on that
     call within 5 %;
 18. the sharded fused link at world size 1 over NCCL, on phase 16's mesh:
     ``build_link(mesh=).jitted`` against ``LinkProgram`` at 2^20 samples
@@ -351,6 +354,12 @@ REPLACES = {
                     "opticomlib_tpu/ops/pallas_kernels.py:81"),
     "cmul": ("cuda", "opticomlib_tpu_torch/ops/csrc/cmul.cu",
              "opticomlib_tpu/ops/pallas_kernels.py:134"),
+    "spectral_phase": ("cuda", "opticomlib_tpu_torch/ops/csrc/cmul.cu",
+                       "none: the adaptive step's linear factor, its product "
+                       "and the inverse FFT's 1/n (XLA fused them)"),
+    "cmul_max": ("cuda", "opticomlib_tpu_torch/ops/csrc/cmul.cu",
+                 "none: the adaptive step's trailing product and its "
+                 "max|A|^2 (XLA fused them)"),
     "histogram2d": ("cuda", "opticomlib_tpu_torch/ops/csrc/histogram2d.cu",
                     "opticomlib_tpu/ops/pallas_kernels.py:342"),
     "adc_quantize": ("cuda", "opticomlib_tpu_torch/ops/csrc/adc_quantize.cu",
@@ -829,9 +838,11 @@ def staged_leftovers(torch, kernels, link, prbs, spec, params, dev):
 #: process, with the kernels each must launch on the card, and the
 #: ``torch.distributed`` ones, each a subprocess of its own
 TWINS_IN_PROCESS = {
-    "fused_link": ("nl_halfstep", "cmul", "histogram2d"),
+    "fused_link": ("nl_halfstep", "spectral_phase", "cmul_max",
+                   "histogram2d"),
     "ook_transmission_fiber_simulation": ("fir_filter", "nl_halfstep",
-                                          "cmul", "histogram2d"),
+                                          "spectral_phase", "cmul_max",
+                                          "histogram2d"),
     "ppm_transmission": ("fir_filter", "histogram2d"),
     "longhaul_dbp": ("nl_halfstep", "cmul"),
     "dispersion_managed_link": ("nl_halfstep", "cmul", "histogram2d"),
@@ -883,6 +894,8 @@ HELD_TWINS = {
 #: per distinct shape (and tap count, bin count, 16-byte alignment), to hold
 #: each against its plain version; the kernel each launches
 CAUGHT_WRAPPERS = {"nl_halfstep": "nl_halfstep", "cmul": "cmul",
+                   "spectral_phase": "spectral_phase",
+                   "cmul_max": "cmul_max", "power_max": "cmul_max",
                    "fir_filter": "fir_filter",
                    "histogram_rows": "histogram2d",
                    "histogram2d": "histogram2d"}
@@ -1002,8 +1015,9 @@ def catch_inputs(torch, kernels, caught: dict) -> dict:
 
 def replay_caught(torch, kernels, caught: dict, phase: int = 21) -> dict:
     """Each caught input through its kernel and its plain version, held
-    with phase 2's tolerances (``nl_halfstep`` ``TOL``; ``cmul`` and the
-    histograms bit-equal) and phase 8's (``fir_filter`` 1e-5 of the
+    with phase 2's tolerances (``nl_halfstep`` ``TOL``; ``cmul``, the
+    adaptive step's ``spectral_phase`` and ``cmul_max`` and the histograms
+    bit-equal) and phase 8's (``fir_filter`` 1e-5 of the
     peak); a failure fails ``phase``.  Returns the largest abs error of
     each kernel."""
     err = {}
@@ -1018,8 +1032,13 @@ def replay_caught(torch, kernels, caught: dict, phase: int = 21) -> dict:
                       f"err {float((a - b).abs().max()):.3g}")
             e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         else:
-            got = getattr(kernels, fname)(*args)
+            # the plain version first: spectral_phase works in place
             ref = getattr(kernels, fname + "_ref")(*args)
+            got = getattr(kernels, fname)(*args)
+            if fname == "cmul_max":  # the product and its maximum
+                check(torch.equal(got[1], ref[1]), phase,
+                      f"{what}: maximum {float(got[1])} vs {float(ref[1])}")
+                got, ref = got[0], ref[0]
             e = float((got - ref).abs().max()) if got.numel() else 0.0
             if fname == "fir_filter":
                 bound = 1e-5 * float(ref.abs().max())
@@ -1608,6 +1627,33 @@ def main() -> None:
                   f"({off_a}, {off_b}), differs from A * B: max abs "
                   f"{float((C - Cr).abs().max()):.3g}")
     del A, E, C, Cr
+    # the adaptive step's two fused kernels: the bits of their plain
+    # versions at the step's shapes, an odd length, two rows and a view 8
+    # bytes off (the scalar paths), the maximum twice in a row (the scratch
+    # is zero again after a launch)
+    from opticomlib_tpu_torch.ops import ssfm
+    loss_h = (np.float32(0.99540436), np.float32(0.7310085))
+    for shape in [(2**24,), (2**24 + 5,), (2, 2**24), (2, 4099)]:
+        for off in (0, 1):
+            n_el = int(np.prod(shape))
+            X = (field(n_el + 1) * 4096)[off:off + n_el].reshape(shape)
+            phi = torch.randn(shape[-1], generator=g, device=dev) * 40
+            want = kernels.spectral_phase_ref(X, phi, *loss_h)
+            kernels.spectral_phase(X, phi, *loss_h)
+            check(torch.equal(X, want), 2, f"spectral_phase {shape}, offset "
+                  f"{off}, differs from its plain version: max abs "
+                  f"{float((X - want).abs().max()):.3g}")
+            H = field(n_el + 1)[1 - off:1 - off + n_el].reshape(shape)
+            Cr, mr = kernels.cmul_max_ref(X, H)
+            for _ in range(2):
+                C, m = kernels.cmul_max(X, H)
+                check(torch.equal(C, Cr) and torch.equal(m, mr)
+                      and torch.equal(kernels.power_max(X),
+                                      kernels.power_max_ref(X)), 2,
+                      f"cmul_max {shape}, offsets ({off}, {1 - off}): max "
+                      f"{float(m)} vs {float(mr)}, product max abs "
+                      f"{float((C - Cr).abs().max()):.3g}")
+    del X, phi, want, H, C, Cr, m, mr
     # ---- the histograms: by rows and by pairs, every path of the launcher
     # The receiver's real input: the KDE bin indices of config 2's eye at
     # 2^20 samples (8192 slots resampled to 128 samples each), caught at the
@@ -1763,6 +1809,11 @@ def main() -> None:
     err["adc_quantize"] = float((y - yr).abs().max())
 
     A, E, A2 = field(2**24), field(2**24), field(2, 2**24)
+    # a spectrum (|X| ~ sqrt(n) |A|) and the dispersion phase of config 2
+    S = torch.fft.fft(field(2**24))
+    phi24 = torch.as_tensor(ssfm.dispersion_phase(
+        2 * np.pi * np.fft.fftfreq(2**24) * SPS * R, -21.0, 0.0), device=dev)
+    m24 = torch.empty((), device=dev)
     pairs = {
         "nl_halfstep": (lambda: kernels.nl_halfstep(A, coeff),
                         lambda: kernels.nl_halfstep_ref(A, coeff)),
@@ -1770,6 +1821,14 @@ def main() -> None:
         # config 4's shape: the 2-polarisation field times one spectral row
         "cmul_2pol": (lambda: kernels.cmul(A2, E),
                       lambda: kernels.cmul_ref(A2, E)),
+        # the adaptive step's fused kernels on its 2^24 spectrum and field
+        "spectral_phase": (
+            lambda: kernels.spectral_phase(S, phi24, *loss_h),
+            lambda: kernels.spectral_phase_ref(S, phi24, *loss_h)),
+        "cmul_max": (lambda: kernels.cmul_max(A, E, m=m24),
+                     lambda: kernels.cmul_max_ref(A, E)),
+        "power_max": (lambda: kernels.power_max(A),
+                      lambda: kernels.power_max_ref(A)),
         # the main paths' call: one receiver's eye window by rows
         "histogram2d": (
             lambda: kernels.histogram_rows(eye_bins, 4096),
@@ -1794,6 +1853,18 @@ def main() -> None:
     library = {"cmul": cuda_ms(torch, lambda: torch.mul(A, E), inner=10),
                "cmul_2pol": cuda_ms(torch, lambda: torch.mul(A2, E),
                                     inner=10)}
+    # the composed passes each fused kernel replaces, as the parent's step
+    # ran them: phi*h, full_like, polar, cmul and the inverse FFT's 1/n
+    # (spectral_phase); cmul, then square, sum and max (cmul_max); square,
+    # sum and max (power_max)
+    a_km = np.float32(ssfm.alpha_per_km(0.2))
+    composed = {k: cuda_ms(torch, f, inner=10) for k, f in {
+        "spectral_phase": lambda: kernels.cmul(S, ssfm._lin_factor(
+            phi24, a_km, loss_h[1])).mul_(2.0**-24),
+        "cmul_max": lambda: torch.view_as_real(kernels.cmul(
+            A, E)).square().sum(-1).max(),
+        "power_max": lambda: torch.view_as_real(A).square().sum(-1).max(),
+    }.items()}
     # Bounds, from the bytes each function must move (inputs read once,
     # outputs written once) and its float32 operations at these shapes:
     #   nl_halfstep  8 B read + 16 B written a sample; |A|^2 * c (4), cos
@@ -1804,9 +1875,16 @@ def main() -> None:
     #                one add a sample
     #   adc_quantize 4 B + 4 B a sample; 6 flop (sub, div, mul, round, div,
     #                fma-free mul and add)
+    #   spectral_phase  8 B + 4 B (phi) read, 8 B written a sample; phi*h,
+    #                cos and sin (1 each), two scalings, the product (6): 10
+    #   cmul_max     as cmul, and 3 flop a sample for the power (the compare
+    #                not counted); power_max: 8 B read a sample, 3 flop
     n24 = 2**24
     bounds = {"nl_halfstep": bound_ms(24 * n24, 12 * n24),
               "cmul": bound_ms(24 * n24, 6 * n24),
+              "spectral_phase": bound_ms(20 * n24, 10 * n24),
+              "cmul_max": bound_ms(24 * n24, 9 * n24),
+              "power_max": bound_ms(8 * n24, 3 * n24),
               "cmul_2pol": bound_ms((2 * 16 + 8) * n24, 2 * 6 * n24),
               "histogram2d": bound_ms(4 * 2**20 + 4 * 4096, 2**20),
               "adc_quantize": bound_ms(8 * n24, 6 * n24)}
@@ -1834,10 +1912,12 @@ def main() -> None:
     library["hist (1, 4096) uniform"] = cuda_ms(
         torch, lambda: torch.bincount(uni1[0], minlength=4096), inner=10)
     bytes_per = {"nl_halfstep": 24, "cmul": 24, "cmul_2pol": 40,
-                 "adc_quantize": 8}
+                 "adc_quantize": 8, "spectral_phase": 20, "cmul_max": 24,
+                 "power_max": 8}
     gbs = {k: b * 2**24 / (ms10[k][0] * 1e-3) / 1e9
            for k, b in bytes_per.items()}
     err["cmul_2pol"] = err["cmul"]
+    err["power_max"] = err["cmul_max"]
     print("phase 2 kernels: ok " + "; ".join(
         f"{k} max_abs_err {err[k]:.3g}, {ms[k][0]:.4f} ms vs plain "
         f"{ms[k][1]:.4f} ms one launch at a time, {ms10[k][0]:.4f} vs "
@@ -1845,6 +1925,8 @@ def main() -> None:
         + (f" ({gbs[k]:.0f} GB/s)" if k in gbs else "")
         + f", bound {bounds[k][0]:.4f} ms"
         + (f", one torch call {library[k]:.4f} ms" if k in library else "")
+        + (f", the composed passes it replaces {composed[k]:.4f} ms queued"
+           if k in composed else "")
         for k in err) + f"; adc_quantize link mode bit-exact with "
         f"{outside} samples outside the range extrapolated, kernel mode "
         f"{ms_adc_kernel_mode[0]:.4f} ms vs plain {ms_adc_kernel_mode[1]:.4f}"
@@ -1856,6 +1938,7 @@ def main() -> None:
     for k in hist_also:
         del err[k]
     del A, E, A2, v, y, yr, codes, x, yk, xs, ys, q, err["cmul_2pol"]
+    del S, phi24, m24, err["power_max"]
     del eye16, amp16, t22, y22, rows16, uni16, rows_cases, pairs_cases
     del hist_timed, caught, v_small, m_small, y_all, amp
 
@@ -1894,8 +1977,11 @@ def main() -> None:
     e = d.eye
     check(d.n_steps == (PINNED["n_steps"],), 4,
           f"n_steps {d.n_steps} != ({PINNED['n_steps']},)")
-    check(launches2["nl_halfstep"] >= 58 and launches2["cmul"] >= 116
-          and launches2["histogram2d"] >= 1, 4, f"launches {launches2}")
+    # every step fused: the factor, the product and its maximum a step,
+    # and the first step size's maximum
+    check(launches2["nl_halfstep"] >= 58 and launches2["spectral_phase"] == 58
+          and launches2["cmul_max"] == 59 and launches2["histogram2d"] >= 1,
+          4, f"launches {launches2}")
     hold_to_pin(d, PINNED, 4)
     print(f"phase 4 config 2 (2^24 samples): ok n_steps {d.n_steps[0]}, BER "
           f"{d.ber} ({d.n_errors} errors), threshold {d.threshold:.5f} "
@@ -2095,8 +2181,9 @@ def main() -> None:
     launches_staged = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     e = d["eye"]
-    check(all(launches_staged[k] > 0 for k in ("fir_filter", "nl_halfstep",
-                                                "cmul", "histogram2d")), 10,
+    check(all(launches_staged[k] > 0 for k in (
+        "fir_filter", "nl_halfstep", "spectral_phase", "cmul_max",
+        "histogram2d")), 10,
           f"launches {launches_staged}")
     check(d["n_steps"] == pin["n_steps"], 10,
           f"n_steps {d['n_steps']} != JAX {pin['n_steps']}")
@@ -2188,7 +2275,8 @@ def main() -> None:
     check(d_s.n_steps == d_h.n_steps and steps3 > 1, 12,
           f"n_steps soft {d_s.n_steps} hard {d_h.n_steps}")
     check(launches3["nl_halfstep"] >= steps3
-          and launches3["cmul"] >= 2 * steps3
+          and launches3["spectral_phase"] == steps3
+          and launches3["cmul_max"] == steps3 + 1
           and launches3["histogram2d"] == 1
           and launches3s["histogram2d"] == 0
           and launches3s["nl_halfstep"] >= steps3, 12,
@@ -2249,7 +2337,8 @@ def main() -> None:
         sw = out[0]
         check(out[1]["histogram2d"] == 1
               and out[1]["nl_halfstep"] >= sum(st[0] for st in sw.n_steps)
-              and out[1]["cmul"] >= 2 * sum(st[0] for st in sw.n_steps), 13,
+              and out[1]["spectral_phase"] == sum(st[0] for st in sw.n_steps),
+              13,
               f"launches of one sweep {out[1]}")
         check(sw.rin_ok.all(), 13, "a RIN draw was clamped")
         check(float(sw.ber.max()) <= 1e-4, 13, f"BER {sw.ber}")
@@ -2465,7 +2554,9 @@ def main() -> None:
           f"max abs err / peak {err_fixed:.3g} > 5e-5")
     del A_seg, straight_fixed
     check(launches_res["nl_halfstep"] == steps_seg
-          and launches_res["cmul"] == 2 * steps_seg, 15,
+          and launches_res["spectral_phase"] == steps_seg
+          and launches_res["cmul_max"] == steps_seg + 5
+          and launches_res["cmul"] == 0, 15,
           f"launches {launches_res} for {steps_seg} steps")
     s_save = statistics.median(t for t, _ in saves)
     print(f"phase 15 resumable fiber (2^24 samples, 50 km in 5 segments): ok "
@@ -2696,8 +2787,10 @@ def main() -> None:
     check("ssfm" in names, 17, "the region's name is not in the trace")
     check(any("_nl_halfstep_kernel" in str(nm) for nm in names), 17,
           "nl_halfstep's kernel is not in the trace")
-    check(any("cmul" in str(nm) for nm in names), 17,
-          "cmul's kernel is not in the trace")
+    # the adaptive fiber's fused step: spectral_phase and cmul_max
+    check(all(any(k in str(nm) for nm in names)
+              for k in ("phase_vec_kernel", "max_vec_kernel")), 17,
+          "the fused step's kernels are not in the trace")
     check(d.n_steps == (PINNED["n_steps"],), 17, f"n_steps {d.n_steps}")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2712,7 +2805,8 @@ def main() -> None:
           f"{ev_ms:.3f} ms")
     print(f"phase 17 profiling (config 2 dsp, 2^24 samples): ok trace "
           f"{trace_bytes} bytes, {len(names)} event names with the 'ssfm' "
-          f"region, _nl_halfstep_kernel and cmul in it; DeviceTimer "
+          f"region, _nl_halfstep_kernel and the fused step's kernels in it; "
+          f"DeviceTimer "
           f"{timer.elapsed * 1e3:.3f} ms vs CUDA events {ev_ms:.3f} ms",
           flush=True)
     del prog, d
@@ -2998,7 +3092,7 @@ def main() -> None:
         y = y * float(np.float32(10.0 ** 0.5)) + torch.complex(d_k[0], d_k[1])
         errs.append(float((sp.local[k] - y).abs().max() / y.abs().max()))
     check(max(errs) <= 5e-4 and launches_sp["nl_halfstep"] > 0
-          and launches_sp["cmul"] > 0, 19,
+          and launches_sp["cmul_max"] > 0, 19,
           f"span_pipeline: max abs err / peak {max(errs):.3g} > 5e-4, or "
           f"launches {launches_sp}")
     print(f"phase 19 span_pipeline (4 x 2^24 samples, 50 km adaptive + "
@@ -3052,6 +3146,7 @@ def main() -> None:
     # a kernel's other shapes: config 4's 2-pol cmul, the DAC's 64 nrz taps,
     # the histograms of the sweeps, the range estimator and the density
     also = {"cmul": {"cmul_2pol": "(2, 2^24) x 1-D 2^24"},
+            "cmul_max": {"power_max": "2^24, the maximum alone"},
             "fir_filter": {"fir_filter_64": "2^24 samples, 64 taps"},
             "histogram2d": hist_also,
             "fbg_rk4": {"fbg_rk4_2^24_gauss": f"2^24 bins, {g20b['n_steps']} "
@@ -3065,6 +3160,7 @@ def main() -> None:
         return {"ms": ms10[k][0], "plain_ms": ms10[k][1],
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                 "library_ms": library.get(k),
+                "composed_ms": composed.get(k),
                 "ms_one_launch": ms[k][0], "plain_ms_one_launch": ms[k][1]}
 
     print(smi[0], flush=True)   # the card again, beside the numbers

@@ -836,8 +836,10 @@ class LinkProgram(torch.nn.Module):
         if cc["kind"] == "fiber":
             with span("fiber", kind="dbp" if cc["sgn"] < 0 else "fiber",
                       method=cc["method"]) as sp:
+                fused = ssfm.STEP_COUNTS["fused"]
                 f, steps = self._fiber(f, st, cc, neg_phi)
-                sp.set(steps=steps)
+                sp.set(steps=steps,
+                       fused=ssfm.STEP_COUNTS["fused"] > fused)
             n_steps.append(steps)
             return f
         with span("stage", kind=cc["kind"]):

@@ -33,7 +33,10 @@ _P, _I, _LL, _F, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: library also exports ``error_string``
 ENTRY_POINTS = {
     "cmul": {
-        "cmul_launch": [_P, _P, _P, _LL, _LL, _I, _P]},
+        "cmul_launch": [_P, _P, _P, _LL, _LL, _I, _P],
+        "spectral_phase_launch": [_P, _P, _LL, _LL, _F, _F, _P],
+        "cmul_max_launch": [_P, _P, _P, _LL, _P, _P, _P],
+        "power_max_launch": [_P, _LL, _P, _P, _P]},
     "histogram2d": {
         "histogram_scratch_len": [_I, _I, _I],
         "histogram_rows_launch": [_P, _I, _LL, _I, _P, _LL, _P, _I, _P],

@@ -3,16 +3,25 @@ PyTorch version and a launch counter.
 
 This is the counterpart of ``opticomlib_tpu/ops/pallas_kernels.py``:
 
-============  ========================  ===============================
-wrapper       kernel                    replaces (TPU kernel)
-============  ========================  ===============================
-nl_halfstep   Triton, triton_kernels    pallas_kernels._nl_kernel
-cmul          CUDA C++, csrc/*.cu       pallas_kernels._cmul_kernel
-histogram2d   CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
-adc_quantize  CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
-fir_filter    CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
-fbg_rk4       CUDA C++, csrc/*.cu       devices._fbg_rk4 (a lax.scan)
-============  ========================  ===============================
+==============  ========================  =============================
+wrapper         kernel                    replaces (TPU kernel)
+==============  ========================  =============================
+nl_halfstep     Triton, triton_kernels    pallas_kernels._nl_kernel
+cmul            CUDA C++, csrc/*.cu       pallas_kernels._cmul_kernel
+spectral_phase  CUDA C++, csrc/cmul.cu    none (XLA's fusion)
+cmul_max        CUDA C++, csrc/cmul.cu    none (XLA's fusion)
+histogram2d     CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
+adc_quantize    CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
+fir_filter      CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
+fbg_rk4         CUDA C++, csrc/*.cu       devices._fbg_rk4 (a lax.scan)
+==============  ========================  =============================
+
+``spectral_phase`` and ``cmul_max`` are the adaptive split step's passes
+around its inverse FFT (``ops/ssfm.ssfm_while_inside``): the linear factor
+built in registers with the inverse's 1/n folded in, and the trailing
+product with its ``max|A|^2``.  ``cmul_max`` has two wrappers over one
+kernel: the product with its maximum (:func:`cmul_max`) and the maximum
+alone (:func:`power_max`); both count as ``cmul_max`` launches.
 
 ``histogram2d`` has two wrappers over one kernel family: the table of index
 pairs (:func:`histogram2d`, the Pallas kernel's function) and its row-batched
@@ -41,6 +50,8 @@ import numpy as np
 import torch
 
 __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
+           "spectral_scale", "spectral_phase", "spectral_phase_ref",
+           "cmul_max", "cmul_max_ref", "power_max", "power_max_ref",
            "histogram2d", "histogram2d_ref", "histogram_rows",
            "histogram_rows_ref", "HIST_MAX_ROWS", "adc_quantize",
            "adc_quantize_ref", "adc_quantize_link", "adc_quantize_link_ref",
@@ -48,8 +59,9 @@ __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
            "fbg_rk4_ref", "LAUNCHES", "reset_launches"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "histogram2d": 0, "adc_quantize": 0,
-            "fir_filter": 0, "fbg_rk4": 0}
+LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "spectral_phase": 0, "cmul_max": 0,
+            "histogram2d": 0, "adc_quantize": 0, "fir_filter": 0,
+            "fbg_rk4": 0}
 
 
 def reset_launches() -> None:
@@ -167,6 +179,151 @@ def cmul(A: torch.Tensor, B: torch.Tensor, out=None) -> torch.Tensor:
         _build.check(lib, err, "cmul")
         LAUNCHES["cmul"] += 1
     return C
+
+
+# ---------------------------------------------------------------------------
+# the adaptive split step's passes around the inverse FFT
+# ---------------------------------------------------------------------------
+def spectral_scale(n: int) -> float:
+    """The inverse FFT's ``1/n`` that :func:`spectral_phase` folds into its
+    factor: ``2^-log2(n)`` at a power-of-two ``n`` (exact, so the inverse
+    then runs with ``norm="forward"``), else 1 (the inverse keeps its own
+    ``1/n``)."""
+    n = int(n)
+    return 2.0 ** -(n.bit_length() - 1) if n > 0 and n & (n - 1) == 0 \
+        else 1.0
+
+
+def spectral_phase_ref(X: torch.Tensor, phi: torch.Tensor, loss,
+                       h) -> torch.Tensor:
+    """Plain version: ``X * polar(loss*s, phi*h)``, ``s`` the
+    :func:`spectral_scale` of ``X``'s rows: the linear factor of
+    ``ops/ssfm._lin_factor`` with the inverse FFT's ``1/n`` folded in."""
+    ls = np.float32(loss) * np.float32(spectral_scale(X.shape[-1]))
+    th = phi * float(np.float32(h))
+    return X * torch.polar(torch.full_like(th, float(ls)), th)
+
+
+def spectral_phase(X: torch.Tensor, phi: torch.Tensor, loss,
+                   h) -> torch.Tensor:
+    """Multiply the spectrum ``X`` (complex64, last axis the frequency) in
+    place by ``loss*s * (cos(phi*h), sin(phi*h))``: the adaptive step's
+    linear factor built in registers, ``phi`` (float32, one row) broadcast
+    over ``X``'s rows, ``s`` the inverse FFT's ``1/n`` where
+    :func:`spectral_scale` folds it.  ``loss`` and ``h``: float32 values.
+    Rounds as :func:`spectral_phase_ref` does on the card (``phi*h``,
+    precise cos and sin, each times ``loss*s``, then ``cmul``'s product).
+    Returns ``X``."""
+    _check(X, "X", torch.complex64)
+    _check(phi, "phi", torch.float32)
+    if X.ndim < 1 or phi.ndim != 1 or phi.shape[0] != X.shape[-1]:
+        raise ValueError(
+            f"spectral_phase takes X (..., n) and a 1-D phi of n, got "
+            f"{tuple(X.shape)} and {tuple(phi.shape)}")
+    if not _on_cuda(X, phi):
+        return X.copy_(spectral_phase_ref(X, phi, loss, h))
+    from . import _build
+    lib = _build.load_library("cmul")
+    if X.numel():
+        ls = np.float32(loss) * np.float32(spectral_scale(X.shape[-1]))
+        ncol = X.shape[-1]
+        with torch.cuda.device(X.device):
+            err = lib.spectral_phase_launch(
+                ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(phi.data_ptr()),
+                ctypes.c_longlong(X.numel() // ncol), ctypes.c_longlong(ncol),
+                ctypes.c_float(np.float32(h)), ctypes.c_float(ls),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(lib, err, "spectral_phase")
+        LAUNCHES["spectral_phase"] += 1
+    return X
+
+
+def power_max_ref(A: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``max(re^2 + im^2)`` as a 0-d float32 tensor (NaN
+    wins)."""
+    return torch.view_as_real(A).square().sum(-1).max()
+
+
+def cmul_max_ref(A: torch.Tensor, H: torch.Tensor) -> tuple:
+    """Plain version: ``C = A * H`` and :func:`power_max_ref` of ``C``."""
+    C = A * H
+    return C, power_max_ref(C)
+
+
+#: the max kernels' two-word u32 scratch per (device index, stream): zero
+#: between launches (the last CTA of a launch zeroes it)
+_max_scratch: dict = {}
+
+
+def _max_launch(fn: str, A: torch.Tensor, H, C, m) -> torch.Tensor:
+    """Launch ``cmul_max_launch`` (``H``, ``C`` given) or
+    ``power_max_launch`` on CUDA tensors, the maximum into ``m`` (a new 0-d
+    float32 tensor when None)."""
+    from . import _build
+    lib = _build.load_library("cmul")
+    dev = A.device
+    stream = _raw_stream(dev.index)
+    scratch = _max_scratch.get((dev.index, stream))
+    with torch.cuda.device(dev):
+        if scratch is None:
+            scratch = _max_scratch[(dev.index, stream)] = torch.zeros(
+                2, dtype=torch.int32, device=dev)
+        if m is None:
+            m = torch.empty((), dtype=torch.float32, device=dev)
+        ptrs = [A.data_ptr()] + ([] if H is None else [H.data_ptr(),
+                                                       C.data_ptr()])
+        err = getattr(lib, fn)(*ptrs, A.numel(), scratch.data_ptr(),
+                               m.data_ptr(), stream)
+    if err:
+        # a refused or failed launch may leave the scratch behind
+        _max_scratch.pop((dev.index, stream), None)
+        _build.check(lib, err, "cmul_max")
+    LAUNCHES["cmul_max"] += 1
+    return m
+
+
+def _max_args(A: torch.Tensor, m) -> None:
+    _check(A, "A", torch.complex64)
+    if not A.numel():
+        raise ValueError("the maximum of an empty tensor is not defined")
+    if m is not None:
+        _check(m, "m", torch.float32)
+        if m.ndim != 0 or m.device != A.device:
+            raise ValueError(f"m must be a 0-d tensor on {A.device}")
+
+
+def cmul_max(A: torch.Tensor, H: torch.Tensor, out=None, m=None) -> tuple:
+    """``C = A * H`` of complex64 tensors of one shape, rounded as
+    :func:`cmul`, and ``max(re^2 + im^2)`` over ``C`` as a 0-d float32
+    tensor on ``A``'s device, in one pass: the adaptive step's trailing
+    product and the maximum that sets its next step.  Bit-equal to
+    :func:`cmul_max_ref` (the maximum is order-free; NaN wins, as in
+    ``torch.max``).  ``out``: the tensor to write ``C`` into (it may be
+    ``A``); ``m``: the 0-d tensor to write the maximum into.  Returns
+    ``(C, m)``."""
+    _max_args(A, m)
+    _check(H, "H", torch.complex64)
+    if H.shape != A.shape:
+        raise ValueError(f"cmul_max takes H of A's shape {tuple(A.shape)}, "
+                         f"got {tuple(H.shape)}")
+    C = None if out is None else _out((out,), A, 1)[0]
+    if not _on_cuda(A, H):
+        Cr, mr = cmul_max_ref(A, H)
+        return (Cr if C is None else C.copy_(Cr),
+                mr if m is None else m.copy_(mr))
+    if C is None:
+        C = torch.empty_like(A)
+    return C, _max_launch("cmul_max_launch", A, H, C, m)
+
+
+def power_max(A: torch.Tensor) -> torch.Tensor:
+    """``max(re^2 + im^2)`` of a complex64 tensor as a 0-d float32 tensor
+    on its device: the reduction of :func:`cmul_max` without the product,
+    one read.  Bit-equal to :func:`power_max_ref`."""
+    _max_args(A, None)
+    if not _on_cuda(A):
+        return power_max_ref(A)
+    return _max_launch("power_max_launch", A, None, None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,27 @@ schemes (``ssfm_o4_auto_inside``, ``ssfm_local_error_inside``).  Each kick
 is one ``nl_halfstep`` launch and each spectral multiply one ``cmul``; the
 two kicks of a substep stay two rotations, as in the JAX package.
 
+On a card the phi_max-adaptive loop takes a fused step instead, where the
+field is a contiguous complex64 CUDA tensor and no ``linear_step`` is hung
+on (:data:`STEP_COUNTS`):
+
+    B, H = nl_halfstep(A, gamma*h/2)
+    X = fft(B) ; spectral_phase(X)             # E(h) built in registers
+    A, m = cmul_max(ifft(X, norm="forward"), H)   # and max|A|^2, one pass
+
+``spectral_phase`` folds the inverse's 1/n into ``E`` at a power-of-two
+length (otherwise the inverse keeps its own 1/n), and ``cmul_max`` gives
+the ``max|A|^2`` that sets the next step, so a step is five launches and
+writes no factor and no power temporary.  The fused step is bit-equal to
+the composed one: the same factor and product roundings, a power-of-two
+scale commutes with every rounding of the transform, and a maximum is
+order-free.  Every other caller takes the composed step: the CPU, other
+dtypes, a ``linear_step`` (the sharded solver's transforms), the
+fixed-step and higher-order schemes.  ``STEP_COUNTS`` counts the loop's
+steps by path; the kernels count in ``kernels.LAUNCHES`` (``power_max``,
+the first step size's one-read maximum, as ``cmul_max``); the link's
+``fiber`` span says ``fused``.
+
 Step control runs in float32 on the host, as the JAX loops run it in
 float32 on the device: ``z``, ``h`` and the next ``h`` are ``np.float32``
 so the step counts match the JAX package's.  The adaptive loops read back
@@ -56,7 +77,8 @@ from . import kernels
 
 __all__ = ["linear_operator", "dispersion_phase", "alpha_per_km",
            "adaptive_h0", "dispersive_step", "progress_bar",
-           "ssfm_step_schedule", "max_power", "ssfm_while_inside",
+           "ssfm_step_schedule", "max_power", "STEP_COUNTS",
+           "ssfm_while_inside",
            "ssfm_scan_inside", "ssfm_o4_scan_inside", "ssfm_o4_auto_inside",
            "ssfm_local_error_inside", "ssfm_propagate", "ssfm_scan_o4",
            "ssfm_o4_auto", "ssfm_local_error"]
@@ -65,6 +87,10 @@ _LOG10E_X10 = 4.342944819032518  # 10*log10(e): dB/km -> 1/km divisor
 _MAX_STEPS = 400_000  # runaway backstop, as in the JAX loop
 
 f32 = np.float32
+
+#: steps of :func:`ssfm_while_inside` by the path they took: ``fused`` (the
+#: card's two fused kernels around the inverse FFT) or ``composed``
+STEP_COUNTS = {"fused": 0, "composed": 0}
 
 
 # ----------------------------------------------------------------------
@@ -159,12 +185,16 @@ def ssfm_step_schedule(length: float, h: float) -> np.ndarray:
     return np.asarray(hs, dtype=np.float32)
 
 
+def _step_loss(alpha: np.float32, h: np.float32) -> np.float32:
+    """The step's field loss ``exp(-alpha/2*h)`` in float32."""
+    return np.exp(f32(-0.5) * alpha * h, dtype=np.float32)
+
+
 def _lin_factor(phi_w: torch.Tensor, alpha: np.float32,
                 h: np.float32) -> torch.Tensor:
     """Linear-step multiplier ``exp(-alpha/2*h) * exp(i*phi_w*h)``."""
-    loss = np.exp(f32(-0.5) * alpha * h, dtype=np.float32)
     th = phi_w * float(h)
-    return torch.polar(torch.full_like(th, float(loss)), th)
+    return torch.polar(torch.full_like(th, float(_step_loss(alpha, h))), th)
 
 
 def _nl_l_nl_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
@@ -183,14 +213,38 @@ def _nl_l_nl_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
     return kernels.cmul(A, H)
 
 
-def max_power(A: torch.Tensor, reduce_max=None) -> np.float32:
-    """``max|A|^2`` read back to the host (the per-step sync).
-    ``reduce_max``: a collective applied to the 0-d device value before the
-    read-back (the all-reduce(max) of a sharded waveform)."""
-    m = torch.view_as_real(A).square().sum(-1).max()
+def _fuses(A: torch.Tensor) -> bool:
+    """True where the card's fused kernels take ``A``: a contiguous
+    complex64 CUDA tensor."""
+    return A.is_cuda and A.dtype == torch.complex64 and A.is_contiguous()
+
+
+def _read_max(m: torch.Tensor, reduce_max=None) -> np.float32:
     if reduce_max is not None:
         m = reduce_max(m)
     return f32(m.item())
+
+
+def max_power(A: torch.Tensor, reduce_max=None) -> np.float32:
+    """``max|A|^2`` read back to the host (the per-step sync); one pass of
+    ``kernels.power_max`` where the fused kernels take ``A``.
+    ``reduce_max``: a collective applied to the 0-d device value before the
+    read-back (the all-reduce(max) of a sharded waveform)."""
+    return _read_max(kernels.power_max(A) if _fuses(A)
+                     else kernels.power_max_ref(A), reduce_max)
+
+
+def _fused_step(A: torch.Tensor, phi_w: torch.Tensor, alpha: np.float32,
+                h: np.float32, gamma: np.float32, norm: str,
+                m: torch.Tensor) -> tuple:
+    """One :func:`_nl_l_nl_step` through the card's fused kernels; ``norm``
+    the inverse FFT's (``"forward"`` where ``spectral_phase`` folds its
+    1/n).  Returns ``(A, m)``, ``m`` holding ``max|A|^2``."""
+    B, H = kernels.nl_halfstep(A, gamma * (h / f32(2)))
+    X = kernels.spectral_phase(torch.fft.fft(B, dim=-1), phi_w,
+                               _step_loss(alpha, h), h)
+    Y = torch.fft.ifft(X, dim=-1, norm=norm)
+    return kernels.cmul_max(Y, H, out=Y, m=m)
 
 
 def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
@@ -204,8 +258,11 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
     single-FFT linear substep (the pencil or overlap-save transform of the
     sharded solver; ``phi_w`` may then be ``None``).  ``h_max``: a hard cap
     on the adaptive step (the overlap-save solver caps ``h`` at the size its
-    halo was derived for).  Ticks the progress handler after each step.
-    Returns ``(A, n_steps)``."""
+    halo was derived for).  Takes the fused step (module docstring) where
+    ``A`` is a contiguous complex64 CUDA tensor, ``phi_w`` contiguous
+    float32 and ``linear_step`` None, the composed step otherwise, and
+    counts each step in :data:`STEP_COUNTS`.  Ticks the progress handler
+    after each step.  Returns ``(A, n_steps)``."""
     alpha, length, gamma = f32(alpha), f32(length), f32(gamma)
     phi_max, h0 = f32(phi_max), f32(h0)
     # minimum step: float32 z-accumulation stalls when h < ulp(z)
@@ -213,16 +270,28 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
     z, h, steps = f32(0.0), min(h0, length), 0
     if h_max is not None:
         h = min(h, f32(h_max))
+    fused = (linear_step is None and _fuses(A) and phi_w.is_contiguous()
+             and phi_w.dtype == torch.float32)
+    if fused:
+        norm = ("forward" if kernels.spectral_scale(A.shape[-1]) != 1
+                else "backward")
+        m = torch.empty((), dtype=torch.float32, device=A.device)
+    path = "fused" if fused else "composed"
     with np.errstate(divide="ignore"):
         while z < length and steps < _MAX_STEPS:
             z = z + h
-            if linear_step is None:
+            if fused:
+                A, m = _fused_step(A, phi_w, alpha, h, gamma, norm, m)
+            elif linear_step is None:
                 A = _nl_l_nl_step(A, phi_w, alpha, h, gamma)
             else:  # the same frozen-operator step around another transform
                 B, H = kernels.nl_halfstep(A, gamma * (h / f32(2)))
                 A = kernels.cmul(linear_step(B, h), H)
+            STEP_COUNTS[path] += 1
             if adaptive:
-                h_next = phi_max / (abs(gamma) * max_power(A, reduce_max))
+                p = (_read_max(m, reduce_max) if fused
+                     else max_power(A, reduce_max))
+                h_next = phi_max / (abs(gamma) * p)
             else:
                 h_next = h0
             if h_max is not None:

@@ -76,6 +76,192 @@ def test_cmul_kernel_bit_equal_to_plain(cuda_device, shape, broadcast,
     assert kernels.LAUNCHES["cmul"] == 1
 
 
+def _bits_view(shape, seed, off, device):
+    """A contiguous complex64 field of ``shape`` whose storage starts
+    ``off`` samples (8 bytes each) past an allocation."""
+    n = int(np.prod(shape))
+    return _field((n + 1,), seed, device)[off:off + n].reshape(shape)
+
+
+@pytest.mark.parametrize("shape", [
+    (2**24,), (2**20 + 3,), (2, 2**20), (2, 4099), (2, 4100), (5, 3, 1026),
+    (1,), (3,), (2**20 - 1,)])
+@pytest.mark.parametrize("misalign", ["none", "X", "phi"])
+def test_spectral_phase_kernel_bit_equal_to_plain(cuda_device, shape,
+                                                  misalign):
+    """The factor built in registers gives the bits of the plain
+    ``X * polar(loss*s, phi*h)`` on every path of the launcher: 16-byte
+    vectors with one row or two, the odd last sample of one row, the scalar
+    kernel (an odd row length under two rows, views off their boundary);
+    the 1/n folded at the power-of-two lengths only."""
+    X = _bits_view(shape, 21, int(misalign == "X"), cuda_device)
+    n = shape[-1]
+    buf = torch.randn(n + 1, generator=torch.Generator(
+        device=cuda_device).manual_seed(22), device=cuda_device) * 40
+    phi = buf[int(misalign == "phi"):][:n]
+    loss, h = np.float32(0.99540436), np.float32(0.7310085)
+    want = kernels.spectral_phase_ref(X, phi, loss, h)
+    assert kernels.spectral_phase(X, phi, loss, h) is X
+    torch.cuda.synchronize()
+    assert torch.equal(X, want)
+    assert kernels.LAUNCHES["spectral_phase"] == 1
+
+
+@pytest.mark.parametrize("shape", [
+    (2**24,), (2**20 + 1,), (2, 2**20), (2, 4099), (1,), (3,),
+    (1024 * 4 * 2 + 2,), (1024 * 4 * 2 + 3,)])
+@pytest.mark.parametrize("misalign", ["none", "A", "all"])
+def test_cmul_max_kernel_bit_equal_to_plain(cuda_device, shape, misalign):
+    """The product and its ``max(re^2 + im^2)`` in one pass give the bits of
+    ``A * H`` and of ``view_as_real(A * H).square().sum(-1).max()``, in
+    place too, and twice in a row (the scratch is zero again after a
+    launch); ``power_max`` gives the maximum of ``A`` alone."""
+    A = _bits_view(shape, 23, int(misalign in ("A", "all")), cuda_device)
+    H = _bits_view(shape, 24, int(misalign == "all"), cuda_device)
+    Cr, mr = kernels.cmul_max_ref(A, H)
+    for _ in range(2):
+        C, m = kernels.cmul_max(A, H)
+        assert torch.equal(C, Cr) and torch.equal(m, mr)
+        assert m.ndim == 0 and m.dtype == torch.float32
+        assert torch.equal(kernels.power_max(A), kernels.power_max_ref(A))
+    m0 = torch.empty((), device=cuda_device)
+    Cin, m1 = kernels.cmul_max(A, H, out=A, m=m0)
+    torch.cuda.synchronize()
+    assert Cin is A and m1 is m0
+    assert torch.equal(A, Cr) and torch.equal(m0, mr)
+    assert kernels.LAUNCHES["cmul_max"] == 5
+
+
+@pytest.mark.parametrize("where", [0, 2**20 - 1, 777_777])
+def test_cmul_max_propagates_nan_and_inf(cuda_device, where):
+    """An infinite sample makes the maximum infinite; a NaN anywhere makes
+    it NaN, as ``torch.max`` does."""
+    A = _field((2**20,), 25, cuda_device)
+    H = _field((2**20,), 26, cuda_device)
+    A[where] = complex(float("inf"), 1.0)
+    assert kernels.power_max(A).item() == float("inf")
+    assert kernels.cmul_max_ref(A, H)[1].item() == float("inf")
+    assert kernels.cmul_max(A, H)[1].item() == float("inf")
+    A[where] = 1.0
+    A[(where + 12345) % A.numel()] = complex("nan")
+    assert np.isnan(kernels.power_max_ref(A).item())
+    assert np.isnan(kernels.power_max(A).item())
+    assert np.isnan(kernels.cmul_max(A, H)[1].item())
+
+
+def _fiber_inputs(monkeypatch, call):
+    """The arguments the link hands its adaptive fiber loop during
+    ``call()``, the field cloned."""
+    from opticomlib_tpu_torch.ops import ssfm
+    seen, orig = [], ssfm.ssfm_while_inside
+
+    def spy(A, *args, **kw):
+        seen.append((A.clone(), args, kw))
+        return orig(A, *args, **kw)
+
+    monkeypatch.setattr(ssfm, "ssfm_while_inside", spy)
+    call()
+    monkeypatch.setattr(ssfm, "ssfm_while_inside", orig)
+    return seen
+
+
+def _cell_link(cell, device):
+    """The link and one call of the benchmark's adaptive cells at 2^24
+    samples: BASELINE config 2 (``ook_50km``) and config 3 with the hard
+    PPM receiver (``ppm8_20km``)."""
+    fiber = dict(length=50.0, alpha=0.2, beta_2=-21.0, gamma=1.3,
+                 phi_max=0.01)
+    tx = dict(Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=16.0,
+              pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9)
+    if cell == "ook_50km":
+        spec = link.LinkSpec(**tx, stages=(link.FiberSpec(**fiber),
+                                           link.EDFASpec(G=10, NF=5)))
+        prog = link.build_link(spec, 2**18, SimParams.create(
+            sps=64, R=10e9, _warn=False), device=device)
+        bits = prbs(15, length=2**18)[0]
+        return lambda: prog.dsp(bits=bits, seed=3)
+    spec = link.LinkSpec(**tx, stages=(
+        link.FiberSpec(**dict(fiber, length=20.0)),
+        link.BPFSpec(BW=15e9, n=4)))
+    prog = link.build_link(spec, 2**16 * 8, SimParams.create(
+        sps=32, R=10e9, _warn=False), device=device)
+    bits = prbs(15, length=2**16 * 3)[0]
+    return lambda: prog.dsp_ppm(8, decision="hard", bits=bits, seed=3)
+
+
+@pytest.mark.parametrize("cell,steps", [("ook_50km", 58), ("ppm8_20km", 36)])
+def test_fused_adaptive_loop_bit_equal_to_composed(cuda_device, monkeypatch,
+                                                   cell, steps):
+    """On the benchmark cells' launch fields at 2^24 samples the fused loop
+    (five launches a step) takes the composed loop's steps and ends on its
+    bits: the folded 1/n commutes with cuFFT's roundings, the factor and
+    the product round as before and the maximum is order-free."""
+    from opticomlib_tpu_torch.ops import ssfm
+    ((A, args, kw),) = _fiber_inputs(monkeypatch,
+                                     _cell_link(cell, cuda_device))
+    assert A.numel() == 2**24 and A.dtype == torch.complex64
+    monkeypatch.setattr(ssfm, "STEP_COUNTS", dict(fused=0, composed=0))
+    kernels.reset_launches()
+    fused, n_f = ssfm.ssfm_while_inside(A.clone(), *args, **kw)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    monkeypatch.setattr(ssfm, "_fuses", lambda A: False)
+    composed, n_c = ssfm.ssfm_while_inside(A.clone(), *args, **kw)
+    assert n_f == n_c == steps
+    assert ssfm.STEP_COUNTS == dict(fused=steps, composed=steps)
+    assert launches["nl_halfstep"] == launches["spectral_phase"] == steps
+    assert launches["cmul_max"] == steps and launches["cmul"] == 0
+    assert torch.equal(fused, composed), float(
+        (fused - composed).abs().max())
+
+
+def test_fused_loop_hands_its_scalar_to_reduce_max(cuda_device):
+    """The ``reduce_max`` hook gets the fused step's 0-d device maximum
+    (the loop's one buffer) before each read-back; hooked or not, the loop
+    takes the same steps to the same bits."""
+    from opticomlib_tpu_torch.ops import ssfm
+    n = 2**20
+    A = _launch_field(n, 2, cuda_device)
+    phi = torch.as_tensor(ssfm.dispersion_phase(
+        2 * np.pi * np.fft.fftfreq(n) * 160e9, -20.0, 0.0),
+        device=cuda_device)
+    seen = []
+
+    def hook(m):
+        seen.append(m)
+        return m
+
+    args = (phi, 8.0, 1.3, 0.02, 0.3, ssfm.alpha_per_km(0.2))
+    out, steps = ssfm.ssfm_while_inside(A, *args, adaptive=True,
+                                        reduce_max=hook)
+    ref, steps_r = ssfm.ssfm_while_inside(A, *args, adaptive=True)
+    assert steps == steps_r == len(seen) > 5 and torch.equal(out, ref)
+    assert all(m is seen[0] for m in seen)
+    assert seen[0].ndim == 0 and seen[0].dtype == torch.float32
+    assert seen[0].device == A.device
+    assert torch.equal(seen[-1], kernels.power_max_ref(out))
+
+
+def test_nan_field_takes_the_composed_steps(cuda_device, monkeypatch):
+    """A field with a NaN sample ends the fused loop where it ends the
+    composed one: the NaN maximum makes ``h`` NaN on both."""
+    from opticomlib_tpu_torch.ops import ssfm
+    n = 2**20
+    A = _launch_field(n, 4, cuda_device)
+    A[n // 3] = complex("nan")
+    phi = torch.as_tensor(ssfm.dispersion_phase(
+        2 * np.pi * np.fft.fftfreq(n) * 160e9, -20.0, 0.0),
+        device=cuda_device)
+    args = (phi, 8.0, 1.3, 0.02, 0.3, ssfm.alpha_per_km(0.2))
+    fused, n_f = ssfm.ssfm_while_inside(A, *args, adaptive=True)
+    monkeypatch.setattr(ssfm, "_fuses", lambda A: False)
+    composed, n_c = ssfm.ssfm_while_inside(A, *args, adaptive=True)
+    assert n_f == n_c
+    assert torch.isnan(fused).all() and torch.isnan(composed).all()
+    assert np.isnan(ssfm.max_power(fused)) and np.isnan(
+        ssfm.max_power(composed))
+
+
 @pytest.mark.parametrize("n,nt,ny", [(2**20, 1, 4096), (2**20, 64, 256),
                                      (10_001, 256, 1024), (0, 1, 16)])
 def test_histogram2d_kernel_matches_plain(cuda_device, n, nt, ny):
@@ -372,8 +558,11 @@ def test_resumable_on_card_kill_and_resume(cuda_device, tmp_path):
     whole = runtime.ssfm_propagate_resumable(
         A, w, 8.0, str(tmp_path / "whole"), 2.0, **kw)
     assert whole.device == A.device and whole.dtype == torch.complex64
-    assert kernels.LAUNCHES["nl_halfstep"] > 0
-    assert kernels.LAUNCHES["cmul"] == 2 * kernels.LAUNCHES["nl_halfstep"]
+    # adaptive: every step fused, the first step sizes from power_max
+    n_steps = kernels.LAUNCHES["nl_halfstep"]
+    assert n_steps > 0 and kernels.LAUNCHES["cmul"] == 0
+    assert kernels.LAUNCHES["spectral_phase"] == n_steps
+    assert kernels.LAUNCHES["cmul_max"] > n_steps
     orig, calls = PropagationCheckpointer.save, {"n": 0}
 
     def dying(self, *a, **k):

@@ -109,6 +109,54 @@ def test_cmul_written_rounding_is_within_one_product_rounding():
     assert np.all(np.abs(ref - (re + 1j * im)) <= bound)
 
 
+@pytest.mark.parametrize("shape", [(4096,), (2, 4096), (5000,), (2, 5000),
+                                   (4097,), (1,)])
+def test_spectral_phase_ref_is_lin_factor_and_inverse_scale(shape):
+    """The plain version is ``cmul(X, _lin_factor(phi, alpha, h))`` times the
+    inverse FFT's 1/n, bit for bit, at a power-of-two length (a power of
+    two scales exactly), and with nothing folded at any other length."""
+    from opticomlib_tpu_torch.ops import ssfm
+    n = shape[-1]
+    X = torch.from_numpy(_field(shape, 15, 40.0))
+    phi = torch.from_numpy(
+        np.random.default_rng(16).normal(size=n).astype(np.float32) * 40)
+    alpha, h = np.float32(0.046), np.float32(0.731)
+    got = kernels.spectral_phase_ref(X, phi, ssfm._step_loss(alpha, h), h)
+    want = kernels.cmul(X, ssfm._lin_factor(phi, alpha, h))
+    s = kernels.spectral_scale(n)
+    assert s == (1.0 / n if n & (n - 1) == 0 else 1.0)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(want) * s)
+    # and the folded inverse is the plain inverse, up to the CPU FFT's own
+    # scaling pass
+    norm = "forward" if s != 1 else "backward"
+    torch.testing.assert_close(torch.fft.ifft(got, norm=norm),
+                               torch.fft.ifft(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", [(4096,), (2, 5001), (1,)])
+def test_cmul_max_ref_is_cmul_then_max_power(shape):
+    """The product with its ``max(re^2 + im^2)`` is ``cmul`` then the
+    solver's old ``max_power`` formula, bit for bit; a NaN anywhere makes
+    the maximum NaN, as ``torch.max`` does."""
+    A = torch.from_numpy(_field(shape, 17))
+    H = torch.from_numpy(_field(shape, 18))
+    C, m = kernels.cmul_max_ref(A, H)
+    want = kernels.cmul(A, H)
+    assert torch.equal(C, want)
+    assert m.dtype == torch.float32 and m.ndim == 0
+    assert torch.equal(m, torch.view_as_real(want).square().sum(-1).max())
+    assert torch.equal(kernels.power_max(A),
+                       torch.view_as_real(A).square().sum(-1).max())
+    # the wrappers on the CPU: into out= and m=
+    out, m0 = torch.empty_like(A), torch.empty(())
+    C2, m2 = kernels.cmul_max(A, H, out=out, m=m0)
+    assert C2 is out and m2 is m0 and torch.equal(C2, C)
+    assert torch.equal(m2, m)
+    A.view(-1)[-1] = complex("nan")
+    assert torch.isnan(kernels.cmul_max(A, H)[1])
+    assert torch.isnan(kernels.power_max(A))
+
+
 @pytest.mark.parametrize("n,nt,ny", [(4096, 1, 4096), (5000, 8, 64)])
 def test_histogram2d_ref_matches_pallas(n, nt, ny):
     rng = np.random.default_rng(6)
@@ -202,7 +250,15 @@ def test_wrappers_take_plain_path_on_cpu():
     for got, want in zip(kernels.fbg_rk4(*coeff, 3.0, *grid, 8),
                          kernels.fbg_rk4_ref(*coeff, 3.0, *grid, 8)):
         assert torch.equal(got, want)
+    X = A.clone()
+    assert kernels.spectral_phase(X, x, 0.9, 0.25) is X
+    assert torch.equal(X, kernels.spectral_phase_ref(A, x, 0.9, 0.25))
+    C, m = kernels.cmul_max(A, B)
+    Cr, mr = kernels.cmul_max_ref(A, B)
+    assert torch.equal(C, Cr) and torch.equal(m, mr)
+    assert torch.equal(kernels.power_max(A), kernels.power_max_ref(A))
     assert kernels.LAUNCHES == {"nl_halfstep": 0, "cmul": 0,
+                                "spectral_phase": 0, "cmul_max": 0,
                                 "histogram2d": 0, "adc_quantize": 0,
                                 "fir_filter": 0, "fbg_rk4": 0}
     assert "triton" not in sys.modules
@@ -249,6 +305,37 @@ def test_wrappers_take_plain_path_on_cpu():
                                       8),                          # dtype
     lambda: kernels.adc_quantize_link(torch.zeros(4), torch.zeros(()),
                                       torch.ones(()), 17),         # bits
+    lambda: kernels.spectral_phase(torch.zeros(4, dtype=torch.complex128),
+                                   torch.zeros(4), 1.0, 0.1),      # dtype
+    lambda: kernels.spectral_phase(torch.zeros(4, dtype=torch.complex64),
+                                   torch.zeros(4, dtype=torch.float64),
+                                   1.0, 0.1),                      # dtype
+    lambda: kernels.spectral_phase(torch.zeros(4, dtype=torch.complex64),
+                                   torch.zeros(3), 1.0, 0.1),      # shape
+    lambda: kernels.spectral_phase(torch.zeros((2, 4), dtype=torch.complex64),
+                                   torch.zeros((2, 4)), 1.0, 0.1),  # 2-D
+    lambda: kernels.spectral_phase(torch.zeros((2, 8), dtype=torch.complex64)
+                                   [:, ::2], torch.zeros(4), 1.0,
+                                   0.1),                           # layout
+    lambda: kernels.spectral_phase(torch.zeros(4, dtype=torch.complex64),
+                                   torch.zeros(4, device="meta"), 1.0,
+                                   0.1),                           # devices
+    lambda: kernels.cmul_max(torch.zeros(4, dtype=torch.complex64),
+                             torch.zeros(4, dtype=torch.complex128)),  # dtype
+    lambda: kernels.cmul_max(torch.zeros((2, 4), dtype=torch.complex64),
+                             torch.zeros(4, dtype=torch.complex64)),  # shape
+    lambda: kernels.cmul_max(torch.zeros(0, dtype=torch.complex64),
+                             torch.zeros(0, dtype=torch.complex64)),  # empty
+    lambda: kernels.cmul_max(torch.zeros(4, dtype=torch.complex64),
+                             torch.zeros(4, dtype=torch.complex64,
+                                         device="meta")),          # devices
+    lambda: kernels.cmul_max(torch.zeros(4, dtype=torch.complex64),
+                             torch.zeros(4, dtype=torch.complex64),
+                             m=torch.zeros(1)),                    # m 0-d
+    lambda: kernels.power_max(torch.zeros(4)),                     # dtype
+    lambda: kernels.power_max(torch.zeros((2, 8), dtype=torch.complex64)
+                              [:, ::2]),                           # layout
+    lambda: kernels.power_max(torch.zeros(0, dtype=torch.complex64)),  # empty
 ])
 def test_wrappers_reject_bad_input(call):
     with pytest.raises((TypeError, ValueError)):

@@ -292,11 +292,12 @@ def test_dsp_span_tree(shape, n_fiber, n_stage):
     if shape == "config2":
         assert fibers[0]["attrs"]["kind"] == "fiber"
         assert fibers[0]["attrs"]["steps"] > 10          # adaptive
+        assert fibers[0]["attrs"]["fused"] is False      # CPU: composed
     else:
         kinds = [f["attrs"]["kind"] for f in fibers]
         assert kinds == ["fiber"] * 20 + ["dbp"] * 20
         assert all(f["attrs"] == dict(kind=f["attrs"]["kind"], method="o4",
-                                      steps=4) for f in fibers)
+                                      steps=4, fused=False) for f in fibers)
         assert set(order[2:-4]) == {"fiber", "stage"}
 
 

@@ -95,3 +95,82 @@ def test_two_polarizations_propagate_independently(launch_field):
         out1 = tssfm.ssfm_scan_inside(A2[r].clone(), torch.from_numpy(phi_w),
                                       hs, CFG["gamma"], a_km)
         assert _rel_l2(out2[r].numpy(), out1.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_step_counts_and_fused_loop(launch_field, monkeypatch, fused):
+    """``STEP_COUNTS`` counts each step of the adaptive loop by its path.
+    The CPU takes the composed step; with the fused kernels' condition
+    forced true, the fused loop (the plain versions of ``spectral_phase``
+    and ``cmul_max`` around an ``ifft`` with ``norm="forward"``) takes the
+    composed loop's steps, holds to the JAX package as the composed loop
+    does, and launches nothing."""
+    A, phi_w = launch_field
+    a_km = jssfm.alpha_per_km(CFG["alpha"])
+    maxP0 = float(np.max(np.abs(A) ** 2))
+    h0 = min(CFG["phi_max"] / (CFG["gamma"] * maxP0), CFG["length"])
+    re, im, steps_j = jssfm._ssfm_loop(
+        A.real.copy(), A.imag.copy(), phi_w, CFG["length"], CFG["gamma"],
+        CFG["phi_max"], h0, a_km, adaptive=True)
+    args = (torch.from_numpy(phi_w), CFG["length"], CFG["gamma"],
+            CFG["phi_max"], h0, a_km)
+    composed, steps_c = tssfm.ssfm_while_inside(torch.from_numpy(A), *args,
+                                                adaptive=True)
+    monkeypatch.setattr(tssfm, "STEP_COUNTS", dict(fused=0, composed=0))
+    if fused:
+        monkeypatch.setattr(tssfm, "_fuses", lambda A: True)
+    kernels.reset_launches()
+    out, steps = tssfm.ssfm_while_inside(torch.from_numpy(A), *args,
+                                         adaptive=True)
+    assert steps == steps_c == int(steps_j)
+    assert tssfm.STEP_COUNTS == dict(fused=steps if fused else 0,
+                                     composed=0 if fused else steps)
+    # the CPU's FFT scales inside the transform, so only the card's fused
+    # loop is bit-equal (tests/test_torch_cuda.py); here the two differ by
+    # float32 FFT round-off over the steps
+    assert _rel_l2(out.numpy(), composed.numpy()) <= 1e-4
+    assert _rel_l2(out.numpy(), np.asarray(re) + 1j * np.asarray(im)) <= 1e-4
+    assert not any(kernels.LAUNCHES.values())
+    # a hooked linear step never fuses
+    monkeypatch.setattr(tssfm, "STEP_COUNTS", dict(fused=0, composed=0))
+    _, steps_l = tssfm.ssfm_while_inside(
+        torch.from_numpy(A), None, *args[1:], adaptive=True,
+        linear_step=lambda B, h: torch.fft.ifft(kernels.cmul(
+            torch.fft.fft(B), tssfm._lin_factor(args[0], np.float32(a_km),
+                                                h))))
+    assert tssfm.STEP_COUNTS == dict(fused=0, composed=steps_l)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_fiber_span_says_whether_the_step_fused(monkeypatch, fused):
+    """The link's ``fiber`` span carries ``fused``: True where the adaptive
+    loop took the fused step (here forced on the CPU), False where it took
+    the composed one; the steps and the answers do not change."""
+    from opticomlib_tpu_torch import link
+    from opticomlib_tpu_torch.params import SimParams
+    from opticomlib_tpu_torch.utils import profiling
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=16.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        stages=(link.FiberSpec(length=50.0, alpha=0.2, beta_2=-21.0,
+                               gamma=1.3),))
+    prog = link.build_link(spec, 2**8, SimParams.create(sps=64, R=R,
+                                                        _warn=False),
+                           device="cpu")
+    bits = np.random.default_rng(3).integers(0, 2, 2**8).astype(np.uint8)
+    plain = prog.dsp(bits=bits, seed=1)
+    if fused:
+        monkeypatch.setattr(tssfm, "_fuses", lambda A: True)
+    monkeypatch.setattr(tssfm, "STEP_COUNTS", dict(fused=0, composed=0))
+    profiling.record(True)
+    try:
+        res = prog.dsp(bits=bits, seed=1)
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    (fib,) = [r for r in recs if r["name"] == "fiber"]
+    assert fib["attrs"]["fused"] is fused
+    assert fib["attrs"]["steps"] == res.n_steps[0] == plain.n_steps[0] > 10
+    assert tssfm.STEP_COUNTS["fused" if fused else "composed"] == \
+        res.n_steps[0]
+    assert res.n_errors == plain.n_errors
