@@ -32,8 +32,10 @@ operations are the JAX program's; what differs:
   rank of the mesh runs its block of the channels and the per-channel
   results are gathered (``torch.distributed``).
 * ``build_link(mesh=...)`` returns the sharded program of
-  :mod:`opticomlib_tpu_torch.link_sharded`, ``build_link(span_mesh=...)``
-  the span-pipelined one of :mod:`opticomlib_tpu_torch.link_pipeline`.
+  :mod:`opticomlib_tpu_torch.link_sharded`, which runs this module's chain
+  (TX, stages, fiber dispatch, PD/LPF/ADC: ``_LinkChain``) on each rank's
+  block, ``build_link(span_mesh=...)`` the span-pipelined one of
+  :mod:`opticomlib_tpu_torch.link_pipeline`.
 
 Typical use::
 
@@ -370,9 +372,11 @@ def _stage_plan(stages, f0: float, fs: float, *, fiber_extra, dm_const,
     return [one(s) for s in stages]
 
 
-def _promote_2pol(f: torch.Tensor) -> torch.Tensor:
-    """A 1-pol field as the first row of a (2, n) field."""
-    return torch.stack([f, torch.zeros_like(f)]) if f.ndim == 1 else f
+def _promote_2pol(f: torch.Tensor, lead: int) -> torch.Tensor:
+    """A 1-pol field ``(..., n)`` with ``lead`` leading channel axes as the
+    first row of a 2-pol field ``(..., 2, n)``."""
+    return (torch.stack([f, torch.zeros_like(f)], dim=lead)
+            if f.ndim == lead + 1 else f)
 
 
 def _ook_decide(m, slots, bits_f32):
@@ -606,36 +610,41 @@ def _ppm_result(host_rows: dict, M: int, decision: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the program
+# the chain, and the program
 # ---------------------------------------------------------------------------
-class LinkProgram(torch.nn.Module):
-    """The end-to-end link for ``n_bits`` slots on one device.
+class _LinkChain(torch.nn.Module):
+    """The link's physics, written once for :class:`LinkProgram` and the
+    sharded program
+    (:class:`~opticomlib_tpu_torch.link_sharded.ShardedLinkProgram`): DAC ->
+    laser -> MZM/PM, the stages (fiber dispatch, EDFA, DM, BPF), photodiode
+    -> LPF -> ADC.  The field carries ``_lead`` leading channel axes:
+    ``(n,)`` / ``(2, n)`` on one device, ``(lc, B)`` / ``(lc, 2, B)`` on a
+    rank of the sharded program.  A program supplies what it does
+    differently:
 
-    ``forward(bits_f32, seed=0, noise=None) -> (v, slots, n_steps[, field],
-    rin_ok)``: the filtered (and, with ``adc_bits``, quantised) photodiode
-    voltage (n,), its slot samples (n_bits,), the split-step count of each
-    fiber stage in the order they run, the optical field before the
-    photodiode when built with ``return_field=True``, and a 0-d float32
-    flag that is 0 when a RIN draw crossed -1 and was clamped.
-    :meth:`run` and :meth:`dsp` are the host conveniences (bits in,
-    results out)."""
+    * ``_spectral(x, H)``: the spectral multiply by ``H`` (real in, real
+      out); ``_ssfm_spectral`` / ``_ssfm_sum``: the split-step loops'
+      ``spectral`` and ``reduce_sum`` hooks (None: their own FFT and sums);
+    * ``_over_time(x, op)``: ``"mean"`` or ``"min"`` over the time axis, one
+      a channel, shaped to broadcast against ``x``;
+    * ``_fiber_phase(st, cc, neg)`` and ``_dm_factor(cc)``: a fiber's
+      dispersion phase rate (``neg``: the call's cache of DBP phases) and a
+      DM stage's spectral factor, in the program's layout;
+    * ``_adaptive(f, phi_w, st, g_nl, a_lin)``: the phi_max-adaptive solve,
+      ``(field, steps)``;
+    * ``_adc(v, bits)``: the ADC;
+    * the draws of a call, as callables: ``walk(sigma)`` the laser's Wiener
+      phase, ``normal(name, sigma)`` ``sigma * N(0, 1)`` for ``"rin"``,
+      ``"thermal"`` and ``"shot"``, ``ase(sigma)`` the next noisy EDFA's
+      ``(..., 4, time)`` draws."""
+    _lead = 0
+    _ssfm_spectral = None
+    _ssfm_sum = None
 
-    def __init__(self, spec: LinkSpec, n_bits: int, params: SimParams,
-                 device, return_field: bool = False):
-        super().__init__()
-        self.spec = spec
-        self.n_bits = int(n_bits)
-        self.params = params
-        self.device = torch.device(device)
-        self.return_field = bool(return_field)
-        sps = params.sps
-        self.n = n = self.n_bits * sps
-        fs = params.fs
-
-        self._buffer("Hp", _circular_zero_phase_spectrum(
-            _pulse_taps(spec, sps), n))
-
-        # --- laser: Wiener phase, RIN, frequency offset ---
+    def _set_scalars(self, mine=slice(None)) -> None:
+        """The laser, modulator and photodiode constants; registers the
+        frequency offset's phase (``mine``: this rank's samples of it)."""
+        spec, n, fs = self.spec, self.n, self.params.fs
         self.sigma_ph = (float(np.sqrt(2 * pi * spec.lw * (1.0 / fs)))
                          if spec.lw and spec.lw > 0 else 0.0)
         self.sigma_rin = (float(np.sqrt(idb(spec.rin) * fs))
@@ -650,36 +659,7 @@ class LinkProgram(torch.nn.Module):
             # n*df the raw phase reaches radians of float32 ulp
             t_axis = np.linspace(0.0, n / fs, n, endpoint=True)
             self._buffer("df_phase", np.mod(
-                2 * pi * spec.df * t_axis, 2 * pi).astype(np.float32))
-
-        # --- spectral stage constants, named as the JAX program names them:
-        # one counter across phi_w, phi_dm and H2_bpf, identical arrays
-        # shared ---
-        w = 2 * np.pi * np.fft.fftfreq(n) * fs
-        names = {}
-
-        def register(prefix, key, build):
-            key = (prefix,) + tuple(key)
-            if key not in names:
-                names[key] = f"{prefix}_{len(names)}"
-                self._buffer(names[key], build())
-            return names[key]
-
-        self.plan = _stage_plan(
-            spec.stages, params.f0, fs,
-            fiber_extra=lambda st: {"phi_name": register(
-                "phi_w", (st.beta_2, st.beta_3),
-                lambda: ssfm.dispersion_phase(w, st.beta_2, st.beta_3))},
-            dm_const=lambda st: {"phi_name": register(
-                "phi_dm", (st.D,),
-                lambda: ((w * 1e-12) ** 2 * st.D / 2).astype(np.float32))},
-            bpf_name=lambda order, BW: register(
-                "H2_bpf", (order, float(BW)),
-                lambda: filters.bessel_filtfilt_response(
-                    order, float(BW) / 2, fs, n)))
-        self._buffer("H2_pd", filters.bessel_filtfilt_response(
-            spec.lpf_order, float(spec.pd_BW), fs, n))
-
+                2 * pi * spec.df * t_axis, 2 * pi).astype(np.float32)[mine])
         self.P0_amp = float(np.sqrt(idbm(spec.P0)))
         self.loss_amp = float(idb(-spec.loss_dB) ** 0.5)
         self.eta_half = float(idb(-spec.ER_dB) ** 0.5)
@@ -687,128 +667,63 @@ class LinkProgram(torch.nn.Module):
         self.S_T = (4 * kB * spec.pd_T * fs / 2 * idb(spec.pd_Fn)
                     / spec.pd_R_load if spec.include_thermal else 0.0)
         self.instant = (spec.sampler_instant if spec.sampler_instant
-                        is not None else sps // 2)
+                        is not None else self.params.sps // 2)
 
-    def _buffer(self, name: str, arr: np.ndarray) -> None:
-        # a copy: the filter responses come from an lru_cache, and
-        # load_consts writes into the buffers
-        self.register_buffer(name, torch.tensor(arr, device=self.device))
-
-    def load_consts(self, consts: dict) -> None:
-        """Replace the spectral constants with ``consts`` (name -> tensor,
-        e.g. from :func:`opticomlib_tpu_torch.convert.consts_from_jax`).
-        Names, shapes and dtypes must match the buffers; a real response
-        goes into a complex64 buffer as it is (an exact cast)."""
-        bufs = dict(self.named_buffers())
-        if set(consts) != set(bufs):
-            raise ValueError(f"constants {sorted(consts)} do not match the "
-                             f"program's buffers {sorted(bufs)}")
-        for name, val in consts.items():
-            val = torch.as_tensor(val)
-            if bufs[name].dtype == torch.complex64 and val.dtype == \
-                    torch.float32:
-                val = val.to(torch.complex64)
-            if val.shape != bufs[name].shape or val.dtype != bufs[name].dtype:
-                raise ValueError(
-                    f"{name}: got {val.dtype}{tuple(val.shape)}, expected "
-                    f"{bufs[name].dtype}{tuple(bufs[name].shape)}")
-            bufs[name].copy_(val)
-
-    # ---- the chain ----
-    def forward(self, bits: torch.Tensor, seed: int = 0,
-                noise: Optional[dict] = None):
-        spec, n, sps = self.spec, self.n, self.params.sps
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        draw = _injected(noise, self.device)
+    def _chain(self, transmit, ase, normal):
+        """``transmit()`` (the launch field and the ``rin_ok`` flags), the
+        stages (``RepeatSpec`` unrolled, the field promoted to 2
+        polarisations before a block with a noisy EDFA), then
+        :meth:`_receive`.  Returns the voltage, the step count of each fiber
+        stage in the order they ran, the field before the photodiode and
+        ``rin_ok``."""
         with span("tx"):
-            field, rin_ok = self._transmit(bits, gen, draw)
-
-        # --- channel stages ---
-        i_ase = itertools.count()
-
-        def ase(sigma):  # the next noisy EDFA's (4, n) draw
-            return gaussian((4, n), sigma, gen, draw("ase", next(i_ase)))
-
+            field, rin_ok = transmit()
         neg_phi = {}  # -phi_w of the DBP stages, built once per call
         n_steps = []
-        for st, cc in zip(spec.stages, self.plan):
+        for st, cc in zip(self.spec.stages, self.plan):
             if cc["kind"] != "repeat":
                 field = self._stage(field, st, cc, ase, neg_phi, n_steps)
                 continue
             if cc["needs_ase"]:
-                field = _promote_2pol(field)
+                field = _promote_2pol(field, self._lead)
             for _ in range(cc["n"]):
                 for s_st, s_cc in zip(st.stages, cc["sub"]):
                     field = self._stage(field, s_st, s_cc, ase, neg_phi,
                                         n_steps)
-
         with span("rx.pd"):
-            v = self._receive(field, lambda name, sigma: gaussian(
-                (n,), sigma, gen, draw(name)))
-        out = (v, v[self.instant::sps], tuple(n_steps))
-        if self.return_field:
-            out = out + (field,)
-        return out + (rin_ok,)
+            v = self._receive(field, normal)
+        return v, n_steps, field, rin_ok
 
-    def _receive(self, field: torch.Tensor, normal) -> torch.Tensor:
-        """Photodiode -> electrical LPF (zero-phase ``|H|^2``) -> the
-        optional ADC: the receiver's voltage ``(n,)`` float32 of a ``(n,)``
-        or ``(2, n)`` field.  ``normal(name, sigma)`` gives ``sigma *
-        N(0, 1)`` for ``"thermal"`` and ``"shot"``, in that order."""
-        spec = self.spec
-
-        # --- PD (reference devices.py:1378-1555) ---
-        P = field.real ** 2 + field.imag ** 2
-        if field.ndim == 2:
-            P = P.sum(dim=0)
-        i_ph = P * float(f32(spec.pd_r))
-        i = i_ph
-        if spec.include_thermal or spec.include_shot:
-            # the reference folds i_dark into the noise track
-            i = i + float(f32(spec.i_dark))
-        if spec.include_thermal:
-            i = i + normal("thermal", self.S_T ** 0.5)
-        if spec.include_shot:
-            S_N = ((i_ph.mean() + float(f32(spec.i_dark)))
-                   * float(2 * f32(e)) * float(f32(self.params.fs / 2)))
-            i = i + normal("shot", torch.sqrt(S_N))
-
-        # --- electrical LPF (zero-phase |H|^2), ADC ---
-        v = filters.apply_freq_response(i * float(f32(spec.pd_R_load)),
-                                        self.H2_pd).contiguous()
-        if spec.adc_bits is not None:
-            v = _adc_quantize(v, int(spec.adc_bits))
-        return v
-
-    def _transmit(self, bits: torch.Tensor, gen: torch.Generator, draw):
-        """DAC -> laser -> MZM/PM: the launch field ``(n,)`` complex64 and
-        the ``rin_ok`` flag, the laser's draws taken from ``gen`` (phase,
-        then RIN) or ``draw(name)``."""
-        spec, n, sps = self.spec, self.n, self.params.sps
-        dev = self.device
+    def _launch(self, bits: torch.Tensor, walk, normal):
+        """DAC -> laser -> MZM/PM: the launch field (complex64) and the
+        ``rin_ok`` flags (0 where a RIN draw crossed -1 and was clamped) of
+        the float32 ``bits``, the laser's draws from ``walk`` (phase) and
+        ``normal("rin", sigma)``, in that order."""
+        spec, sps = self.spec, self.params.sps
 
         # --- DAC: zero-stuff upsample + circular pulse shaping ---
         xu = pulses.upsample_zero_stuff(bits.to(torch.float32), sps)
-        x = torch.fft.ifft(torch.fft.fft(xu) * self.Hp).real  # drive
+        x = self._spectral(xu, self.Hp)  # drive
         x = x * float(f32(spec.Vpp)) + float(f32(spec.offset))
         if spec.coupling.strip().upper() == "AC":
-            x = x - x.mean()
+            x = x - self._over_time(x, "mean")
 
         # --- LASER: E = amp * exp(i*phase), or the scalar P0_amp ---
         P0_amp = float(f32(self.P0_amp))
         phase = None
         if self.sigma_ph > 0:
-            phase = wiener_phase(n, self.sigma_ph, gen, draw("phase"))
+            phase = walk(self.sigma_ph)
         if spec.df:
             phase = self.df_phase if phase is None else phase + self.df_phase
         amp = None
-        rin_ok = torch.ones((), dtype=torch.float32, device=dev)
+        rin_ok = torch.ones(x.shape[:-1], dtype=torch.float32,
+                            device=x.device)
         if self.sigma_rin > 0:
-            rin = gaussian((n,), self.sigma_rin, gen, draw("rin"))
+            rin = normal("rin", self.sigma_rin)
             # clamp the power at 0 so a tail draw darkens one sample
             # instead of NaN-ing the chain, and flag it
-            rin_ok = (rin.min() > -1.0).to(torch.float32)
+            rin_ok = (self._over_time(rin, "min") > -1.0).to(
+                torch.float32).reshape(rin_ok.shape)
             amp = torch.sqrt(torch.clamp(1 + rin, min=0.0)) * P0_amp
         E = None
         if phase is not None:
@@ -845,50 +760,210 @@ class LinkProgram(torch.nn.Module):
         with span("stage", kind=cc["kind"]):
             if cc["kind"] == "edfa":
                 if "sigma_ase" in cc:  # physical 2-pol ASE
-                    f = _promote_2pol(f) * float(f32(cc["sqrtG"]))
+                    f = _promote_2pol(f, self._lead) * float(f32(cc["sqrtG"]))
                     d = ase(cc["sigma_ase"])
-                    f = f + torch.complex(d[:2], d[2:])
+                    f = f + torch.complex(d[..., :2, :], d[..., 2:, :])
                 else:
                     f = f * float(f32(cc["sqrtG"]))
                 if "H2_name" in cc:
-                    f = filters.apply_freq_response(f, getattr(
-                        self, cc["H2_name"]))
+                    f = self._spectral(f, getattr(self, cc["H2_name"]))
                 return f
             if cc["kind"] == "dm":
-                ph = getattr(self, cc["phi_name"])
-                return filters.apply_freq_response(
-                    f, torch.complex(torch.cos(ph), torch.sin(ph)))
-            return filters.apply_freq_response(f, getattr(self,
-                                                          cc["H2_name"]))
+                return self._spectral(f, self._dm_factor(cc))
+            return self._spectral(f, getattr(self, cc["H2_name"]))
 
     def _fiber(self, f, st: FiberSpec, cc: dict, neg_phi: dict):
         """One span, forward or (DBPSpec: ``sgn = -1``) the sign-flipped
-        back-propagation; returns ``(field, n_steps)``."""
+        back-propagation, by its scheme: one exact step (linear only), a
+        fixed schedule (Strang or o4), step doubling (o4 or
+        ``local_error``) or phi_max-adaptive.  Returns ``(field,
+        steps)``."""
         if "pre_scale" in cc:
             f = f * float(f32(cc["pre_scale"]))
         sgn = cc["sgn"]
-        phi_w = getattr(self, cc["phi_name"])
-        if sgn < 0:
-            if cc["phi_name"] not in neg_phi:
-                neg_phi[cc["phi_name"]] = -phi_w
-            phi_w = neg_phi[cc["phi_name"]]
+        phi_w = self._fiber_phase(st, cc, neg_phi)
         g_nl, a_lin = sgn * st.gamma, sgn * cc["a_km"]
         if cc["linear_only"] and cc["hs"] is None:
             # one exact step; nothing to adapt to
             return ssfm.ssfm_scan_inside(f, phi_w, np.asarray(
-                [st.length], dtype=np.float32), g_nl, a_lin), 1
+                [st.length], dtype=np.float32), g_nl, a_lin,
+                spectral=self._ssfm_spectral), 1
         if cc["hs"] is not None:
             scan = (ssfm.ssfm_o4_scan_inside if cc["method"] == "o4"
                     else ssfm.ssfm_scan_inside)
-            return scan(f, phi_w, cc["hs"], g_nl, a_lin), len(cc["hs"])
+            return scan(f, phi_w, cc["hs"], g_nl, a_lin,
+                        spectral=self._ssfm_spectral), len(cc["hs"])
         if cc["method"] in ("o4", "local_error"):
             auto = (ssfm.ssfm_o4_auto_inside if cc["method"] == "o4"
                     else ssfm.ssfm_local_error_inside)
             return auto(f, phi_w, st.length, g_nl, st.tol, st.length / 10.0,
-                        a_lin)
-        with np.errstate(divide="ignore"):
-            h0 = min(f32(st.phi_max) / (abs(f32(g_nl)) * ssfm.max_power(f)),
-                     f32(st.length))
+                        a_lin, reduce_sum=self._ssfm_sum,
+                        spectral=self._ssfm_spectral)
+        return self._adaptive(f, phi_w, st, g_nl, a_lin)
+
+    def _receive(self, field: torch.Tensor, normal) -> torch.Tensor:
+        """Photodiode -> electrical LPF (zero-phase ``|H|^2``) -> the
+        optional ADC: the receiver's voltage, float32, of a 1- or 2-pol
+        field (``(n,)`` or ``(2, n)`` on one device).  ``normal(name,
+        sigma)`` gives ``sigma * N(0, 1)`` for ``"thermal"`` and
+        ``"shot"``, in that order."""
+        spec = self.spec
+
+        # --- PD (reference devices.py:1378-1555) ---
+        P = field.real ** 2 + field.imag ** 2
+        if field.ndim == self._lead + 2:
+            P = P.sum(dim=self._lead)
+        i_ph = P * float(f32(spec.pd_r))
+        i = i_ph
+        if spec.include_thermal or spec.include_shot:
+            # the reference folds i_dark into the noise track
+            i = i + float(f32(spec.i_dark))
+        if spec.include_thermal:
+            i = i + normal("thermal", self.S_T ** 0.5)
+        if spec.include_shot:
+            S_N = ((self._over_time(i_ph, "mean") + float(f32(spec.i_dark)))
+                   * float(2 * f32(e)) * float(f32(self.params.fs / 2)))
+            i = i + normal("shot", torch.sqrt(S_N))
+
+        # --- electrical LPF (zero-phase |H|^2), ADC ---
+        v = self._spectral(i * float(f32(spec.pd_R_load)),
+                           self.H2_pd).contiguous()
+        if spec.adc_bits is not None:
+            v = self._adc(v, int(spec.adc_bits))
+        return v
+
+
+class LinkProgram(_LinkChain):
+    """The end-to-end link for ``n_bits`` slots on one device.
+
+    ``forward(bits_f32, seed=0, noise=None) -> (v, slots, n_steps[, field],
+    rin_ok)``: the filtered (and, with ``adc_bits``, quantised) photodiode
+    voltage (n,), its slot samples (n_bits,), the split-step count of each
+    fiber stage in the order they run, the optical field before the
+    photodiode when built with ``return_field=True``, and a 0-d float32
+    flag that is 0 when a RIN draw crossed -1 and was clamped.
+    :meth:`run` and :meth:`dsp` are the host conveniences (bits in,
+    results out)."""
+
+    def __init__(self, spec: LinkSpec, n_bits: int, params: SimParams,
+                 device, return_field: bool = False):
+        super().__init__()
+        self.spec = spec
+        self.n_bits = int(n_bits)
+        self.params = params
+        self.device = torch.device(device)
+        self.return_field = bool(return_field)
+        sps = params.sps
+        self.n = n = self.n_bits * sps
+        fs = params.fs
+
+        self._buffer("Hp", _circular_zero_phase_spectrum(
+            _pulse_taps(spec, sps), n))
+        self._set_scalars()
+
+        # --- spectral stage constants, named as the JAX program names them:
+        # one counter across phi_w, phi_dm and H2_bpf, identical arrays
+        # shared ---
+        w = 2 * np.pi * np.fft.fftfreq(n) * fs
+        names = {}
+
+        def register(prefix, key, build):
+            key = (prefix,) + tuple(key)
+            if key not in names:
+                names[key] = f"{prefix}_{len(names)}"
+                self._buffer(names[key], build())
+            return names[key]
+
+        self.plan = _stage_plan(
+            spec.stages, params.f0, fs,
+            fiber_extra=lambda st: {"phi_name": register(
+                "phi_w", (st.beta_2, st.beta_3),
+                lambda: ssfm.dispersion_phase(w, st.beta_2, st.beta_3))},
+            dm_const=lambda st: {"phi_name": register(
+                "phi_dm", (st.D,),
+                lambda: ((w * 1e-12) ** 2 * st.D / 2).astype(np.float32))},
+            bpf_name=lambda order, BW: register(
+                "H2_bpf", (order, float(BW)),
+                lambda: filters.bessel_filtfilt_response(
+                    order, float(BW) / 2, fs, n)))
+        self._buffer("H2_pd", filters.bessel_filtfilt_response(
+            spec.lpf_order, float(spec.pd_BW), fs, n))
+
+    def _buffer(self, name: str, arr: np.ndarray) -> None:
+        # a copy: the filter responses come from an lru_cache, and
+        # load_consts writes into the buffers
+        self.register_buffer(name, torch.tensor(arr, device=self.device))
+
+    def load_consts(self, consts: dict) -> None:
+        """Replace the spectral constants with ``consts`` (name -> tensor,
+        e.g. from :func:`opticomlib_tpu_torch.convert.consts_from_jax`).
+        Names, shapes and dtypes must match the buffers; a real response
+        goes into a complex64 buffer as it is (an exact cast)."""
+        bufs = dict(self.named_buffers())
+        if set(consts) != set(bufs):
+            raise ValueError(f"constants {sorted(consts)} do not match the "
+                             f"program's buffers {sorted(bufs)}")
+        for name, val in consts.items():
+            val = torch.as_tensor(val)
+            if bufs[name].dtype == torch.complex64 and val.dtype == \
+                    torch.float32:
+                val = val.to(torch.complex64)
+            if val.shape != bufs[name].shape or val.dtype != bufs[name].dtype:
+                raise ValueError(
+                    f"{name}: got {val.dtype}{tuple(val.shape)}, expected "
+                    f"{bufs[name].dtype}{tuple(bufs[name].shape)}")
+            bufs[name].copy_(val)
+
+    # ---- the chain ----
+    def forward(self, bits: torch.Tensor, seed: int = 0,
+                noise: Optional[dict] = None):
+        n = self.n
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        draw = _injected(noise, self.device)
+        i_ase = itertools.count()
+        v, n_steps, field, rin_ok = self._chain(
+            lambda: self._transmit(bits, gen, draw),
+            lambda sigma: gaussian((4, n), sigma, gen,
+                                   draw("ase", next(i_ase))),
+            lambda name, sigma: gaussian((n,), sigma, gen, draw(name)))
+        out = (v, v[self.instant::self.params.sps], tuple(n_steps))
+        if self.return_field:
+            out = out + (field,)
+        return out + (rin_ok,)
+
+    def _transmit(self, bits: torch.Tensor, gen: torch.Generator, draw):
+        """DAC -> laser -> MZM/PM (:meth:`_launch`): the launch field
+        ``(n,)`` complex64 and the ``rin_ok`` flag, the laser's draws taken
+        from ``gen`` (phase, then RIN) or ``draw(name)``."""
+        n = self.n
+        return self._launch(
+            bits, lambda sigma: wiener_phase(n, sigma, gen, draw("phase")),
+            lambda name, sigma: gaussian((n,), sigma, gen, draw(name)))
+
+    # ---- what the chain asks of one device ----
+    _spectral = staticmethod(filters.apply_freq_response)
+    _adc = staticmethod(_adc_quantize)
+
+    @staticmethod
+    def _over_time(x: torch.Tensor, op: str) -> torch.Tensor:
+        return x.mean() if op == "mean" else x.min()
+
+    def _fiber_phase(self, st, cc: dict, neg_phi: dict) -> torch.Tensor:
+        phi_w = getattr(self, cc["phi_name"])
+        if cc["sgn"] < 0:
+            if cc["phi_name"] not in neg_phi:
+                neg_phi[cc["phi_name"]] = -phi_w
+            phi_w = neg_phi[cc["phi_name"]]
+        return phi_w
+
+    def _dm_factor(self, cc: dict) -> torch.Tensor:
+        ph = getattr(self, cc["phi_name"])
+        return torch.complex(torch.cos(ph), torch.sin(ph))
+
+    @staticmethod
+    def _adaptive(f, phi_w, st: FiberSpec, g_nl, a_lin):
+        h0 = ssfm._first_step(st.phi_max, g_nl, ssfm.max_power(f), st.length)
         return ssfm.ssfm_while_inside(f, phi_w, st.length, g_nl, st.phi_max,
                                       h0, a_lin, adaptive=True)
 

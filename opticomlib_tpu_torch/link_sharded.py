@@ -17,10 +17,15 @@ runtime of :mod:`opticomlib_tpu_torch.parallel`:
   same ``(n_channels,)`` vectors.
 
 One process is one rank; every rank of the mesh makes the same calls (SPMD),
-with the whole inputs (bits, seeds), and keeps its block.  On each block the
-kicks are ``kernels.nl_halfstep``, the spectral and twiddle products
-``kernels.cmul``, the receivers' histograms ``kernels.histogram_rows`` and
-the ADC ``kernels.adc_quantize_link``, as on one card.
+with the whole inputs (bits, seeds), and keeps its block.  The chain (TX, the
+stages, the fiber dispatch, PD/LPF/ADC) is the one-device program's,
+:class:`opticomlib_tpu_torch.link._LinkChain`, on this rank's ``(lc, B)``
+block; this module supplies what differs: the pencil spectral multiply, the
+per-channel reductions all-reduced over 'time', the keyed draws, the ADC's
+range and the per-channel adaptive loop.  On each block the kicks are
+``kernels.nl_halfstep``, the spectral and twiddle products ``kernels.cmul``,
+the receivers' histograms ``kernels.histogram_rows`` and the ADC
+``kernels.adc_quantize_link``, as on one card.
 
 Design notes (those of the JAX module, and what differs):
 
@@ -51,33 +56,28 @@ Design notes (those of the JAX module, and what differs):
 from __future__ import annotations
 
 import itertools
-import math
 from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
-from scipy.constants import e, k as kB, pi
 
 from .eyediag import Eye
 from .link import (LinkProgram, LinkSpec, _circular_zero_phase_spectrum,
-                   _gathered_rows, _hdd_uniform, _ook_sweep_rows,
+                   _gathered_rows, _hdd_uniform, _LinkChain, _ook_sweep_rows,
                    _ppm_result, _ppm_shape, _ppm_sweep_rows, _pulse_taps,
                    _stage_plan, _sweep_bits, _sweep_result, _warn_rin)
 from .models.ppm import PPM_ENCODER
-from .ops import filters, kernels, pulses
+from .ops import filters, kernels
 from .ops.eyeana import eye_window, shortest_int_hist
-from .ops.noise import (as_draw, gaussian, keyed_generator,
-                         running_sum)
+from .ops.noise import as_draw, gaussian, keyed_generator, running_sum
 from .ops.prbs import prbs
-from .ops.ssfm import (_MAX_STEPS, _lin_factor, ssfm_local_error_inside,
-                       ssfm_o4_auto_inside, ssfm_o4_scan_inside,
-                       ssfm_scan_inside)
+from .ops.ssfm import (_MAX_STEPS, _first_step, _lin_factor, _next_step,
+                       _phi_step)
 from .parallel.dfft import (pencil_fft, pencil_ifft, strided_dispersion_phase,
                             strided_w_grid)
 from .parallel.fiber import ShardedField
 from .params import SimParams
-from .utils.analysis import idb, idbm
 
 __all__ = ["ShardedLinkProgram"]
 
@@ -94,12 +94,13 @@ def _strided_permute(H: np.ndarray, P_: int) -> np.ndarray:
     return np.ascontiguousarray(H.reshape(B, P_).T).reshape(n)
 
 
-def _promote_2pol(f: torch.Tensor) -> torch.Tensor:
-    """``(lc, B)`` 1-pol channels as the first rows of ``(lc, 2, B)``."""
-    return torch.stack([f, torch.zeros_like(f)], dim=1) if f.ndim == 2 else f
+def _noisy_edfas(plan) -> int:
+    """The noisy EDFAs a stage plan runs, ``RepeatSpec`` blocks unrolled."""
+    return sum(cc["n"] * _noisy_edfas(cc["sub"]) if cc["kind"] == "repeat"
+               else "sigma_ase" in cc for cc in plan)
 
 
-class ShardedLinkProgram(torch.nn.Module):
+class ShardedLinkProgram(_LinkChain):
     """A fused link over a mesh of ranks.  The surface of the JAX
     ``ShardedLinkProgram``: :meth:`jitted` (the chain, sharded outputs),
     :meth:`run` (the waveforms gathered to the host, for small ``n``),
@@ -110,7 +111,10 @@ class ShardedLinkProgram(torch.nn.Module):
     ``time_axis`` and, optionally, a ``wdm_axis`` (a name the mesh lacks
     means none).  Its spectral constants are buffers named as the JAX
     program names its constants (``Hp``, ``H2_pd``, ``H2_bpf_<k>``,
-    ``df_phase``), this rank's block of each, on the mesh's device."""
+    ``df_phase``), this rank's block of each, on the mesh's device.  The
+    chain is :class:`~opticomlib_tpu_torch.link.LinkProgram`'s, on this
+    rank's channels and time block."""
+    _lead = 1
 
     def __init__(self, spec: LinkSpec, n_bits: int, params: SimParams,
                  mesh, time_axis: str = "time",
@@ -192,29 +196,9 @@ class ShardedLinkProgram(torch.nn.Module):
                     grids(st.stages, cc["sub"])
 
         grids(spec.stages, self.plan)
-
-        # laser, modulator and photodiode scalars (the unsharded program's)
-        self.sigma_ph = (float(np.sqrt(2 * pi * spec.lw * (1.0 / fs)))
-                         if spec.lw and spec.lw > 0 else 0.0)
-        self.sigma_rin = (float(np.sqrt(idb(spec.rin) * fs))
-                          if spec.rin is not None else 0.0)
-        if self.sigma_rin * math.sqrt(2 * math.log(max(n, 2))) >= 1.0:
-            raise ValueError(
-                "Noise power is to high, try decrease RIN parameter.")
-        if spec.df:
-            # reduced mod 2*pi in float64 before the float32 cast; a
-            # time-domain constant, so rank q keeps its contiguous samples
-            t_axis = np.linspace(0.0, n / fs, n, endpoint=True)
-            self._buffer("df_phase", np.mod(
-                2 * pi * spec.df * t_axis, 2 * pi).astype(np.float32)[mine])
-        self.P0_amp = float(np.sqrt(idbm(spec.P0)))
-        self.loss_amp = float(idb(-spec.loss_dB) ** 0.5)
-        self.eta_half = float(idb(-spec.ER_dB) ** 0.5)
-        self.g_scale = float(pi / 2 / spec.Vpi)
-        self.S_T = (4 * kB * spec.pd_T * fs / 2 * idb(spec.pd_Fn)
-                    / spec.pd_R_load if spec.include_thermal else 0.0)
-        self.instant = (spec.sampler_instant if spec.sampler_instant
-                        is not None else sps // 2)
+        self._n_ase = _noisy_edfas(self.plan)
+        # a time-domain constant: rank q keeps its contiguous samples
+        self._set_scalars(mine)
 
     _buffer = LinkProgram._buffer
     load_consts = LinkProgram.load_consts
@@ -223,10 +207,40 @@ class ShardedLinkProgram(torch.nn.Module):
     def _time(self, x: torch.Tensor, op: str) -> torch.Tensor:
         return self.mesh.all_reduce(x, op, self.time_axis)
 
+    # ---- what the chain asks of a rank ----
     def _spectral(self, x: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
         """The global spectral multiply: pencil FFT, ``cmul`` by ``H`` (this
-        rank's strided block, broadcast over the leading axes), inverse."""
+        rank's strided block, broadcast over the leading axes), inverse; a
+        real ``x`` gives the real part."""
+        if not x.is_complex():
+            return self._spectral(x.to(torch.complex64), H).real
         return pencil_ifft(kernels.cmul(pencil_fft(x, self._t), H), self._t)
+
+    _ssfm_spectral = _spectral
+
+    def _ssfm_sum(self, s: torch.Tensor) -> torch.Tensor:
+        return self._time(s, "sum")
+
+    def _over_time(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        return self._time(x.mean(dim=-1, keepdim=True) if op == "mean"
+                          else x.amin(dim=-1, keepdim=True), op)
+
+    def _fiber_phase(self, st, cc: dict, neg_phi: dict) -> torch.Tensor:
+        return self._phi[(cc["sgn"] * st.beta_2, cc["sgn"] * st.beta_3)]
+
+    def _dm_factor(self, cc: dict) -> torch.Tensor:
+        return self._dm[cc["D"]]
+
+    def _adc(self, v: torch.Tensor, bits: int) -> torch.Tensor:
+        """The 99.99 % shortest interval from histograms summed over the
+        time axis (no global sort), then the link-mode ADC kernel a
+        channel."""
+        lo, hi = shortest_int_hist(
+            v, 99.99, reduce_sum=lambda t: self._time(t, "sum"),
+            reduce_min=lambda t: self._time(t, "min"),
+            reduce_max=lambda t: self._time(t, "max"))
+        return torch.stack([kernels.adc_quantize_link(v[c], lo[c], hi[c], bits)
+                            for c in range(v.shape[0])])
 
     def _time_gather(self, x: torch.Tensor, width: int) -> torch.Tensor:
         """The first ``width`` samples of this rank's rows of ``x`` (its
@@ -244,7 +258,8 @@ class ShardedLinkProgram(torch.nn.Module):
         q, B = self._t.index, self.block
         out = []
         for c, seed in enumerate(seeds):
-            s = sigma[c] if isinstance(sigma, torch.Tensor) else sigma
+            s = sigma.reshape(-1)[c] if isinstance(sigma, torch.Tensor) \
+                else sigma
             if noise is None:
                 out.append(gaussian(shape, s, keyed_generator(
                     self.device, seed, stage, q)))
@@ -254,6 +269,33 @@ class ShardedLinkProgram(torch.nn.Module):
             out.append(gaussian(shape, s, None, d[..., q * B:(q + 1) * B]))
         return torch.stack(out)
 
+    def _noise(self, seeds, noise):
+        """The chain's draws (``walk``, ``normal``, ``ase``; see
+        :class:`~opticomlib_tpu_torch.link._LinkChain`) for this rank's
+        channels and time block, keyed by (seed, stage, time index): stage
+        0 the laser phase, 1 RIN, 2, 3, ... the noisy EDFAs in the order
+        they run, then thermal and shot noise, each key whether or not its
+        draw is taken."""
+        B = self.block
+        keys = {"phase": 0, "rin": 1, "thermal": 2 + self._n_ase,
+                "shot": 3 + self._n_ase}
+        i_ase = itertools.count()
+
+        def normal(name, sigma):
+            return self._draws(seeds, keys[name], (B,), sigma, noise, name)
+
+        def ase(sigma):
+            i = next(i_ase)
+            return self._draws(seeds, 2 + i, (4, B), sigma, noise, "ase", i)
+
+        def walk(sigma):
+            steps = normal("phase", sigma)
+            # the walk so far: the sums of the blocks before this one
+            totals = self.mesh.all_gather(steps.sum(dim=-1), self.time_axis)
+            return (running_sum(steps)
+                    + totals[:self._t.index].sum(dim=0)[:, None])
+        return walk, normal, ase
+
     # ---- the chain on this rank's block ----
     def _core(self, bits_blk: torch.Tensor, seeds, noise=None):
         """``bits_blk``: ``(lc, bits_block)`` float32, this rank's channels
@@ -261,163 +303,17 @@ class ShardedLinkProgram(torch.nn.Module):
         dicts or ``None``.  Returns this rank's blocks ``(v, slots)``, the
         step counts ``(lc, fiber stages run)``, the field before the
         photodiode and the ``rin_ok`` flags ``(lc,)``."""
-        spec, sps, B = self.spec, self.params.sps, self.block
         lc = bits_blk.shape[0]
-        stage = itertools.count()
-
-        # --- DAC: zero-stuff + circular pulse shaping over the whole n ---
-        xu = pulses.upsample_zero_stuff(bits_blk, sps).to(torch.complex64)
-        x = self._spectral(xu, self.Hp).real
-        x = x * float(f32(spec.Vpp)) + float(f32(spec.offset))
-        if spec.coupling.strip().upper() == "AC":
-            x = x - self._time(x.mean(dim=-1), "mean")[:, None]
-
-        # --- LASER ---
-        P0_amp = float(f32(self.P0_amp))
-        k_phase, k_rin = next(stage), next(stage)
-        phase = None
-        if self.sigma_ph > 0:
-            steps = self._draws(seeds, k_phase, (B,), self.sigma_ph, noise,
-                                "phase")
-            # the walk so far: the sums of the blocks before this one
-            totals = self.mesh.all_gather(steps.sum(dim=-1), self.time_axis)
-            phase = (running_sum(steps)
-                     + totals[:self._t.index].sum(dim=0)[:, None])
-        if spec.df:
-            phase = (self.df_phase.expand(lc, B) if phase is None
-                     else phase + self.df_phase)
-        amp = None
-        rin_ok = torch.ones(lc, dtype=torch.float32, device=self.device)
-        if self.sigma_rin > 0:
-            rin = self._draws(seeds, k_rin, (B,), self.sigma_rin, noise,
-                              "rin")
-            rin_ok = (self._time(rin.amin(dim=-1), "min") > -1.0).to(
-                torch.float32)
-            amp = torch.sqrt(torch.clamp(1 + rin, min=0.0)) * P0_amp
-        E = None
-        if phase is not None:
-            E = torch.polar(torch.full_like(phase, P0_amp)
-                            if amp is None else amp, phase)
-        elif amp is not None:
-            E = amp
-
-        # --- modulator ---
-        if spec.modulator.lower() == "pm":
-            g = x * float(f32(pi / spec.Vpi))
-            h_t = torch.complex(torch.cos(g), torch.sin(g))
-        else:
-            g = (x + float(f32(spec.bias))) * float(f32(self.g_scale))
-            h_t = torch.complex(torch.cos(g), torch.sin(g)
-                                * float(f32(self.eta_half)))
-            h_t = h_t * float(f32(self.loss_amp))
-        field = h_t * P0_amp if E is None else E * h_t
-
-        # --- channel stages ---
-        i_ase = itertools.count()
-
-        def ase(sigma):  # the next noisy EDFA's (lc, 4, block) draws
-            return self._draws(seeds, next(stage), (4, B), sigma, noise,
-                               "ase", next(i_ase))
-
-        n_steps = []
-        for st, cc in zip(spec.stages, self.plan):
-            if cc["kind"] != "repeat":
-                field = self._stage(field, st, cc, ase, n_steps)
-                continue
-            if cc["needs_ase"]:
-                field = _promote_2pol(field)
-            for _ in range(cc["n"]):
-                for s_st, s_cc in zip(st.stages, cc["sub"]):
-                    field = self._stage(field, s_st, s_cc, ase, n_steps)
-
-        # --- PD ---
-        P = field.real ** 2 + field.imag ** 2
-        if field.ndim == 3:
-            P = P.sum(dim=1)
-        i_ph = P * float(f32(spec.pd_r))
-        i = i_ph
-        if spec.include_thermal or spec.include_shot:
-            i = i + float(f32(spec.i_dark))
-        k_T, k_N = next(stage), next(stage)
-        if spec.include_thermal:
-            i = i + self._draws(seeds, k_T, (B,), self.S_T ** 0.5, noise,
-                                "thermal")
-        if spec.include_shot:
-            S_N = ((self._time(i_ph.mean(dim=-1), "mean")
-                    + float(f32(spec.i_dark)))
-                   * float(2 * f32(e)) * float(f32(self.params.fs / 2)))
-            i = i + self._draws(seeds, k_N, (B,), torch.sqrt(S_N), noise,
-                                "shot")
-
-        # --- electrical LPF, ADC, slot sampling ---
-        v = self._spectral((i * float(f32(spec.pd_R_load))).to(
-            torch.complex64), self.H2_pd).real.contiguous()
-        if spec.adc_bits is not None:
-            # the 99.99 % shortest interval from histograms summed over the
-            # time axis (no global sort), then the link-mode ADC kernel
-            lo, hi = shortest_int_hist(
-                v, 99.99, reduce_sum=lambda t: self._time(t, "sum"),
-                reduce_min=lambda t: self._time(t, "min"),
-                reduce_max=lambda t: self._time(t, "max"))
-            v = torch.stack([kernels.adc_quantize_link(
-                v[c], lo[c], hi[c], int(spec.adc_bits)) for c in range(lc)])
+        walk, normal, ase = self._noise(seeds, noise)
+        v, n_steps, field, rin_ok = self._chain(
+            lambda: self._launch(bits_blk, walk, normal), ase, normal)
         steps = torch.as_tensor(
-            np.stack(n_steps, axis=1) if n_steps
-            else np.zeros((lc, 0), np.int64), device=self.device)
-        return (v, v[:, self.instant::sps].contiguous(), steps, field,
-                rin_ok)
+            np.stack([np.broadcast_to(s, lc) for s in n_steps], axis=1)
+            if n_steps else np.zeros((lc, 0), np.int64), device=self.device)
+        return (v, v[:, self.instant::self.params.sps].contiguous(), steps,
+                field, rin_ok)
 
-    def _stage(self, f, st, cc, ase, n_steps):
-        """One stage other than a repeat on this rank's block; fiber stages
-        append their ``(lc,)`` step counts to ``n_steps``."""
-        if cc["kind"] == "fiber":
-            f, steps = self._fiber(f, st, cc)
-            n_steps.append(steps)
-            return f
-        if cc["kind"] == "edfa":
-            if "sigma_ase" in cc:
-                f = _promote_2pol(f) * float(f32(cc["sqrtG"]))
-                d = ase(cc["sigma_ase"])
-                f = f + torch.complex(d[:, :2], d[:, 2:])
-            else:
-                f = f * float(f32(cc["sqrtG"]))
-            if "H2_name" in cc:
-                f = self._spectral(f, getattr(self, cc["H2_name"]))
-            return f
-        if cc["kind"] == "dm":
-            return self._spectral(f, self._dm[cc["D"]])
-        return self._spectral(f, getattr(self, cc["H2_name"]))
-
-    def _fiber(self, f, st, cc):
-        """One span (``DBPSpec``: the sign-flipped back-propagation) on the
-        pencil path; returns ``(field, (lc,) step counts)``."""
-        lc = f.shape[0]
-        if "pre_scale" in cc:
-            f = f * float(f32(cc["pre_scale"]))
-        sgn = cc["sgn"]
-        phi = self._phi[(sgn * st.beta_2, sgn * st.beta_3)]
-        g_nl, a_lin = sgn * st.gamma, sgn * cc["a_km"]
-        if cc["linear_only"] and cc["hs"] is None:
-            return ssfm_scan_inside(f, phi, np.asarray([st.length], f32), g_nl,
-                                    a_lin, spectral=self._spectral), \
-                np.ones(lc, np.int64)
-        if cc["hs"] is not None:
-            scan = (ssfm_o4_scan_inside if cc["method"] == "o4"
-                    else ssfm_scan_inside)
-            return (scan(f, phi, cc["hs"], g_nl, a_lin,
-                         spectral=self._spectral),
-                    np.full(lc, len(cc["hs"]), np.int64))
-        if cc["method"] in ("o4", "local_error"):
-            auto = (ssfm_o4_auto_inside if cc["method"] == "o4"
-                    else ssfm_local_error_inside)
-            f, steps = auto(f, phi, st.length, g_nl, st.tol, st.length / 10.0,
-                            a_lin, reduce_sum=lambda s: self._time(s, "sum"),
-                            spectral=self._spectral)
-            return f, np.full(lc, steps, np.int64)
-        return self._fiber_adaptive(f, phi, st.length, g_nl, a_lin,
-                                    st.phi_max)
-
-    def _fiber_adaptive(self, A, phi, length, gamma, a_km, phi_max):
+    def _adaptive(self, A, phi, st, g_nl, a_lin):
         """phi_max-adaptive split-step with a step size a channel: ``z`` and
         ``h`` are ``(lc,)`` float32 vectors, the live channels take a step
         together (a kick and a spectral factor a channel, one pencil
@@ -425,12 +321,10 @@ class ShardedLinkProgram(torch.nn.Module):
         channel's ``max|A|^2`` is all-reduced (max) over the time axis
         before the step's one read-back, so every rank of a time line takes
         the same steps.  A channel's step sizes are those the single-channel
-        loop (``ops.ssfm.ssfm_while_inside``) takes.  Returns ``(A, (lc,)
-        step counts)``."""
-        g32, a32 = f32(gamma), f32(a_km)
-        L, pm = f32(length), f32(phi_max)
+        loop (``ops.ssfm.ssfm_while_inside``) takes: the same step rule.
+        Returns ``(A, (lc,) step counts)``."""
+        g32, a32, L = f32(g_nl), f32(a_lin), f32(st.length)
         lc = A.shape[0]
-        h_floor = L * f32(1.5e-7)
 
         def ch_max_power():
             m = torch.view_as_real(A).square().sum(-1).reshape(lc, -1)
@@ -438,8 +332,8 @@ class ShardedLinkProgram(torch.nn.Module):
 
         z = np.zeros(lc, f32)
         steps = np.zeros(lc, np.int64)
+        h = _first_step(st.phi_max, g32, ch_max_power(), L)
         with np.errstate(divide="ignore"):
-            h = np.minimum(pm / (abs(g32) * ch_max_power()), L).astype(f32)
             for _ in range(_MAX_STEPS):
                 live = np.flatnonzero(z < L)
                 if not len(live):
@@ -461,8 +355,8 @@ class ShardedLinkProgram(torch.nn.Module):
                 else:
                     A.index_copy_(0, rows, y)
                 steps[live] += 1
-                h_next = pm / (abs(g32) * ch_max_power())
-                h = np.maximum(np.minimum(h_next, L - z), h_floor).astype(f32)
+                h = _next_step(_phi_step(st.phi_max, g32, ch_max_power()),
+                               L, z)
         return A, steps
 
     # ---- inputs and outputs ----

@@ -185,6 +185,32 @@ def ssfm_step_schedule(length: float, h: float) -> np.ndarray:
     return np.asarray(hs, dtype=np.float32)
 
 
+def _phi_step(phi_max, gamma, p):
+    """The phi_max rule's step ``phi_max / (|gamma| p)`` in float32, ``p``
+    the field's ``max|A|^2``: a float32 scalar, or an array of one a
+    channel.  A dark field (``p = 0``) gives ``inf``: a loop calls it under
+    ``np.errstate(divide="ignore")``, entered once, not once a step."""
+    return f32(phi_max) / (abs(f32(gamma)) * p)
+
+
+def _first_step(phi_max, gamma, p, length):
+    """The first phi_max-adaptive step: :func:`_phi_step` capped at the
+    span ``length`` (a dark field takes the whole span), float32."""
+    with np.errstate(divide="ignore"):
+        return np.minimum(_phi_step(phi_max, gamma, p), f32(length))
+
+
+def _next_step(h_next, length, z, h_max=None):
+    """The step after one that ended at ``z``: ``h_next`` (what the rule
+    asks for; float32 scalars, or arrays of one a channel) capped at
+    ``h_max`` where given and at what is left of the span, and no shorter
+    than ``length * 1.5e-7``, below which the float32 ``z + h`` stalls."""
+    if h_max is not None:
+        h_next = np.minimum(h_next, f32(h_max))
+    return np.maximum(np.minimum(h_next, length - z),
+                      length * f32(1.5e-7))
+
+
 def _step_loss(alpha: np.float32, h: np.float32) -> np.float32:
     """The step's field loss ``exp(-alpha/2*h)`` in float32."""
     return np.exp(f32(-0.5) * alpha * h, dtype=np.float32)
@@ -265,8 +291,6 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
     after each step.  Returns ``(A, n_steps)``."""
     alpha, length, gamma = f32(alpha), f32(length), f32(gamma)
     phi_max, h0 = f32(phi_max), f32(h0)
-    # minimum step: float32 z-accumulation stalls when h < ulp(z)
-    h_floor = length * f32(1.5e-7)
     z, h, steps = f32(0.0), min(h0, length), 0
     if h_max is not None:
         h = min(h, f32(h_max))
@@ -289,14 +313,11 @@ def ssfm_while_inside(A: torch.Tensor, phi_w: torch.Tensor, length, gamma,
                 A = kernels.cmul(linear_step(B, h), H)
             STEP_COUNTS[path] += 1
             if adaptive:
-                p = (_read_max(m, reduce_max) if fused
-                     else max_power(A, reduce_max))
-                h_next = phi_max / (abs(gamma) * p)
+                h_next = _phi_step(phi_max, gamma, _read_max(m, reduce_max)
+                                   if fused else max_power(A, reduce_max))
             else:
                 h_next = h0
-            if h_max is not None:
-                h_next = min(h_next, f32(h_max))
-            h = max(min(h_next, length - z), h_floor)
+            h = _next_step(h_next, length, z, h_max)
             steps += 1
             _progress_tick(z, length)
     return A, steps

@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import kernels
-from ..ops.ssfm import (_lin_factor, adaptive_h0, alpha_per_km,
+from ..ops.ssfm import (_first_step, _lin_factor, adaptive_h0, alpha_per_km,
                         dispersion_phase, max_power, ssfm_local_error_inside,
                         ssfm_o4_auto_inside, ssfm_o4_scan_inside,
                         ssfm_scan_inside, ssfm_step_schedule,
@@ -770,9 +770,8 @@ def ssfm_sharded(
                 y, steps = fn(x.local, phi, length, g32, tol, h0, a_km,
                               reduce_sum=reduce_sum, spectral=spectral)
         elif adaptive:
-            with np.errstate(divide="ignore"):
-                h0 = min(f32(phi_max) / (abs(g32) * max_power(
-                    x.local, reduce_max)), f32(length))
+            h0 = _first_step(phi_max, g32, max_power(x.local, reduce_max),
+                             length)
             y, steps = ssfm_while_inside(
                 x.local, None, length, g32, phi_max, h0, a_km,
                 adaptive=True, reduce_max=reduce_max,

@@ -45,11 +45,11 @@ import torch.distributed as dist
 
 from ..ops import filters, kernels
 from ..ops.noise import as_draw, ase_sigma, gaussian, keyed_generator
-from ..ops.ssfm import (_MAX_STEPS, _lin_factor, _nl_l_nl_step, _o4_step,
-                        _W0, _W1, alpha_per_km, dispersion_phase, max_power,
-                        ssfm_local_error_inside, ssfm_o4_auto_inside,
-                        ssfm_scan_inside, ssfm_step_schedule,
-                        ssfm_while_inside)
+from ..ops.ssfm import (_MAX_STEPS, _W0, _W1, _first_step, _lin_factor,
+                        _nl_l_nl_step, _o4_step, alpha_per_km,
+                        dispersion_phase, max_power, ssfm_local_error_inside,
+                        ssfm_o4_auto_inside, ssfm_scan_inside,
+                        ssfm_step_schedule, ssfm_while_inside)
 from .fiber import ShardedField, make_mesh
 
 __all__ = ["make_span_mesh", "span_pipeline", "span_pipeline_stages",
@@ -191,9 +191,7 @@ def span_pipeline(A_batch, mesh, fs: float, span_length: float,
 
     def span(x, m):
         if adaptive:
-            maxP = max(max_power(x), f32(1e-30))
-            h0 = min(f32(phi_max) / (abs(f32(gamma)) * maxP),
-                     f32(span_length))
+            h0 = _first_step(phi_max, gamma, max_power(x), span_length)
             x, _ = ssfm_while_inside(x, phi_w, span_length, gamma, phi_max,
                                      h0, a_km, adaptive=True)
         else:

@@ -184,7 +184,8 @@ def main():
                 laps.append((label, torch.cuda.max_memory_allocated()))
                 torch.cuda.reset_peak_memory_stats()
 
-            core, stage = prog._core, prog._stage
+            # the link chain's own seams (link._LinkChain)
+            stage, receive = prog._stage, prog._receive
 
             def staged(f, st, cc, *a):
                 lap(f"before the {cc['kind']} stage")
@@ -192,12 +193,12 @@ def main():
                 lap(f"the {cc['kind']} stage")
                 return out
 
-            def chain(*a):
-                out = core(*a)
+            def received(*a):
+                out = receive(*a)
                 lap("photodiode, LPF")
                 return out
 
-            prog._core, prog._stage = chain, staged
+            prog._stage, prog._receive = staged, received
             lap("(reset)")
             prog.dsp_wdm(cs.N_CH5, bits=bits5, seed=5)
             lap("receivers")

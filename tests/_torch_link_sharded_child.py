@@ -306,6 +306,39 @@ def check_adc_matches_unsharded(ctx):
     return {"max_lsb": float(np.max(np.abs(v1 - v0)) / lsb)}
 
 
+def check_chain_spans(ctx):
+    """The link chain's spans on each rank: ``tx``, a ``fiber`` span a
+    fiber or DBP stage (with the steps the call returns), a ``stage`` span
+    every other stage and ``rx.pd``, in the order they run, no span left
+    open; the same bits with recording off."""
+    from opticomlib_tpu_torch.utils import profiling
+    link, params = _port()
+    spec = make_spec(link, (("fiber", _FIB), ("edfa", dict(G=10, NF=5)),
+                            ("dbp", dict(_FIB, h=1.0, undo_gain_dB=10.0))))
+    pr = link.build_link(spec, N_BITS, params, mesh=ctx["mesh"])
+    profiling.record(True)
+    try:
+        on = pr.jitted(BITS, [3])
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    off = pr.jitted(BITS, [3])
+    assert np.array_equal(np.asarray(on[0]), np.asarray(off[0]))
+    assert [r["name"] for r in recs] == ["tx", "fiber", "stage", "fiber",
+                                         "rx.pd"], recs
+    assert all(r["parent"] is None and r["call"] == r["id"] for r in recs)
+    fib, edfa, dbp = recs[1:4]
+    assert edfa["attrs"] == {"kind": "edfa"}
+    assert (fib["attrs"]["kind"], fib["attrs"]["method"]) == ("fiber",
+                                                              "reference")
+    assert dbp["attrs"] == dict(kind="dbp", method="reference", steps=50,
+                                fused=False)
+    assert list(fib["attrs"]["steps"]) == list(on[2][0]) and \
+        list(on[2][1]) == [50]
+    assert all(r["t0_ns"] <= r["t1_ns"] for r in recs)
+    return {}
+
+
 def check_consts_equal_jax(ctx):
     """The JAX ShardedLinkProgram's constants (written by the test module)
     are this rank's buffers bit for bit, and load into the program."""
@@ -392,6 +425,7 @@ CHECKS_T4 = {
     "df_matches_unsharded": check_df_matches_unsharded,
     "rin_too_high_raises": check_rin_too_high_raises,
     "adc_matches_unsharded": check_adc_matches_unsharded,
+    "chain_spans": check_chain_spans,
     "consts_equal_jax": check_consts_equal_jax,
     "mesh_sweeps": check_mesh_sweeps,
     "wdm_time_mesh_1x4": check_wdm_time_mesh_1x4,

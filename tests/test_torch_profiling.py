@@ -2,11 +2,12 @@
 CPU: a Chrome trace of a block with its named region in it, the wall timer,
 the busy-interval bookkeeping, and the span recorder; the public names are
 the JAX module's."""
-import gc
 import glob
 import json
+import os
+import subprocess
+import sys
 import time
-import tracemalloc
 from types import SimpleNamespace
 
 import numpy as np
@@ -95,32 +96,47 @@ def recording():
     profiling.record(False)
 
 
-def test_spans_off_record_nothing_and_read_no_clock(monkeypatch):
+#: The tracemalloc window of the test below, in a fresh interpreter: what
+#: earlier tests left in a process (objects in reference cycles, a free
+#: list emptied or filled, callbacks of other packages) could otherwise
+#: allocate inside the window and be traced to a span's frame.
+_SPANS_OFF_WINDOW = """
+import gc, tracemalloc
+from types import SimpleNamespace
+from opticomlib_tpu_torch.utils import profiling
+
+def clock():
+    raise SystemExit("clock read")
+
+profiling.record(False)
+profiling.time = SimpleNamespace(time_ns=clock)
+gc.collect()
+gc.disable()
+tracemalloc.start()
+for _ in range(10_000):
+    with profiling.span("a", kind="x") as s:
+        s.set(steps=3)
+held = tracemalloc.take_snapshot().filter_traces(
+    [tracemalloc.Filter(True, profiling.__file__)])
+tracemalloc.stop()
+print(sum(st.size for st in held.statistics("filename")),
+      len(profiling.drain()))
+"""
+
+
+def test_spans_off_record_nothing_and_read_no_clock():
     profiling.record(False)
     assert profiling.drain() == []
     sp = profiling.span("a", kind="x")
     assert sp is profiling.span("b")          # one shared object
-    monkeypatch.setattr(profiling, "time", SimpleNamespace(
-        time_ns=lambda: pytest.fail("clock read")))
-    # A garbage collection inside the loop would run the finalizers of
-    # whatever earlier tests of the process left in reference cycles (and
-    # the gc callback JAX registers): what they allocate is traced to the
-    # frame that was running, a span's.  So the garbage goes first, and no
-    # collection runs while the spans are counted.
-    gc.collect()
-    gc.disable()
-    tracemalloc.start()
-    try:
-        for _ in range(10_000):
-            with profiling.span("a", kind="x") as s:
-                s.set(steps=3)
-        held = tracemalloc.take_snapshot().filter_traces(
-            [tracemalloc.Filter(True, profiling.__file__)])
-    finally:
-        tracemalloc.stop()
-        gc.enable()
-    assert sum(st.size for st in held.statistics("filename")) == 0
-    assert profiling.drain() == []
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-c", _SPANS_OFF_WINDOW], cwd=root,
+        capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]
+    held, recorded = map(int, run.stdout.split()[-2:])
+    assert held == 0
+    assert recorded == 0
 
 
 def test_span_nesting_gives_parent_and_call(recording):

@@ -174,3 +174,50 @@ def test_fiber_span_says_whether_the_step_fused(monkeypatch, fused):
     assert tssfm.STEP_COUNTS["fused" if fused else "composed"] == \
         res.n_steps[0]
     assert res.n_errors == plain.n_errors
+
+
+@pytest.mark.parametrize("h_max", [None, 0.3])
+def test_step_rule_on_arrays_equals_scalars(h_max):
+    """The phi_max-adaptive step rule (``_first_step``, ``_phi_step``,
+    ``_next_step``) on a float32 array of one ``max|A|^2`` a channel, with
+    a live mask (the sharded link's per-channel loop), gives each channel
+    the step sizes and count it gives that channel's scalars (the
+    single-channel loop ``ssfm_while_inside``): a dark channel (one step),
+    a NaN power (the loop ends), peaks that vary step to step."""
+    f32 = np.float32
+    L, g, pm = f32(50.0), f32(1.3), f32(0.01)
+    powers = np.random.default_rng(5).uniform(
+        1e-3, 0.05, (5, 20_000)).astype(f32)
+    powers[0] = 0.0
+    powers[1, 7] = np.nan
+    powers[2] *= f32(40.0)
+
+    def rule(p, z):
+        return tssfm._next_step(tssfm._phi_step(pm, g, p), L, z, h_max)
+
+    def scalar(p):
+        z, h, hs = f32(0), tssfm._first_step(pm, g, p[0], L), []
+        while z < L:
+            z = z + h
+            hs.append(h)
+            h = rule(p[len(hs)], z)
+        return hs
+
+    z = np.zeros(len(powers), f32)
+    h = tssfm._first_step(pm, g, powers[:, 0], L)
+    steps, hs = np.zeros(len(powers), np.int64), [[] for _ in powers]
+    with np.errstate(divide="ignore"):
+        while (z < L).any():
+            live = np.flatnonzero(z < L)
+            z[live] = z[live] + h[live]
+            for c in live:
+                hs[c].append(h[c])
+            steps[live] += 1
+            h = rule(powers[np.arange(len(powers)), steps], z)
+            assert h.dtype == f32
+        want = [scalar(p) for p in powers]
+    for c in range(len(powers)):
+        assert all(type(x) is f32 for x in want[c])
+        assert np.array(hs[c], f32).tobytes() == np.array(want[c],
+                                                          f32).tobytes()
+    assert steps[0] == 1 and steps[1] == 8 and steps[2] > steps[3] > 10
