@@ -49,7 +49,10 @@ It checks them in phases, one line each; any failure exits non-zero:
    and empty input, indices out of range on both sides, odd lengths and
    views 4, 8 and 12 bytes off a 16-byte boundary; the adaptive step's
    ``spectral_phase`` and ``cmul_max`` / ``power_max`` bit for bit at
-   2^24, an odd length, two rows and views 8 bytes off), and is timed
+   2^24, an odd length, two rows and views 8 bytes off; the o4 scan's
+   boundary pass ``strang_kicks`` bit for bit against the launches it
+   replaces at config 4's (2, 2^24), an odd length and a view 8 bytes off,
+   and to 2e-5 against its plain version), and is timed
    beside it and, where one PyTorch call computes the same function,
    beside that call, and the fused kernels beside the composed passes they
    replace (median of 20 runs, CUDA events);
@@ -352,6 +355,9 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 REPLACES = {
     "nl_halfstep": ("triton", "opticomlib_tpu_torch/ops/triton_kernels.py",
                     "opticomlib_tpu/ops/pallas_kernels.py:81"),
+    "strang_kicks": ("triton", "opticomlib_tpu_torch/ops/triton_kernels.py",
+                     "none: the o4 scan's 1/n and adjacent Strang kicks "
+                     "(XLA fused them)"),
     "cmul": ("cuda", "opticomlib_tpu_torch/ops/csrc/cmul.cu",
              "opticomlib_tpu/ops/pallas_kernels.py:134"),
     "spectral_phase": ("cuda", "opticomlib_tpu_torch/ops/csrc/cmul.cu",
@@ -893,7 +899,8 @@ HELD_TWINS = {
 #: the wrappers whose inputs phase 21.2 catches in the twins' card runs, one
 #: per distinct shape (and tap count, bin count, 16-byte alignment), to hold
 #: each against its plain version; the kernel each launches
-CAUGHT_WRAPPERS = {"nl_halfstep": "nl_halfstep", "cmul": "cmul",
+CAUGHT_WRAPPERS = {"nl_halfstep": "nl_halfstep",
+                   "strang_kicks": "strang_kicks", "cmul": "cmul",
                    "spectral_phase": "spectral_phase",
                    "cmul_max": "cmul_max", "power_max": "cmul_max",
                    "fir_filter": "fir_filter",
@@ -1015,7 +1022,9 @@ def catch_inputs(torch, kernels, caught: dict) -> dict:
 
 def replay_caught(torch, kernels, caught: dict, phase: int = 21) -> dict:
     """Each caught input through its kernel and its plain version, held
-    with phase 2's tolerances (``nl_halfstep`` ``TOL``; ``cmul``, the
+    with phase 2's tolerances (``nl_halfstep`` ``TOL``; ``strang_kicks``
+    bit-equal to the composed kicks and to ``TOL`` of its plain version;
+    ``cmul``, the
     adaptive step's ``spectral_phase`` and ``cmul_max`` and the histograms
     bit-equal) and phase 8's (``fir_filter`` 1e-5 of the
     peak); a failure fails ``phase``.  Returns the largest abs error of
@@ -1031,6 +1040,23 @@ def replay_caught(torch, kernels, caught: dict, phase: int = 21) -> dict:
                 check(torch.allclose(a, b, **TOL), phase, f"{what}: max abs "
                       f"err {float((a - b).abs().max()):.3g}")
             e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        elif fname == "strang_kicks":
+            # the bits of the launches it replaces (the scale, then one
+            # nl_halfstep a kick); its plain version within TOL
+            a, scale, c1, c2 = (tuple(args) + (None,))[:4]
+            want = kernels.nl_halfstep(torch.view_as_complex(
+                torch.view_as_real(a) * float(np.float32(scale))), c1)[0]
+            if c2 is not None:
+                want = kernels.nl_halfstep(want, c2)[0]
+            got = kernels.strang_kicks(a, scale, c1, c2,
+                                       out=torch.empty_like(a))
+            ref = kernels.strang_kicks_ref(a, scale, c1, c2)
+            check(torch.equal(got, want), phase, f"{what}: max abs err "
+                  f"{float((got - want).abs().max()):.3g} against the "
+                  "composed kicks")
+            e = float((got - ref).abs().max())
+            check(torch.allclose(got, ref, **TOL), phase, f"{what}: max abs "
+                  f"err {e:.3g} against the plain version")
         else:
             # the plain version first: spectral_phase works in place
             ref = getattr(kernels, fname + "_ref")(*args)
@@ -1654,6 +1680,33 @@ def main() -> None:
                       f"{float(m)} vs {float(mr)}, product max abs "
                       f"{float((C - Cr).abs().max()):.3g}")
     del X, phi, want, H, C, Cr, m, mr
+    # the o4 scan's boundary pass on an unscaled inverse FFT: the bits of
+    # the launches it replaces (the exact 1/n, then one nl_halfstep a kick,
+    # a Yoshida w1 kick and the negative w0 one at config 4's step), one and
+    # two kicks, at config 4's (2, 2^24), an odd length and a view 8 bytes
+    # off; its plain version rounds |x|^2 without the kernels' fused
+    # multiply-add, as nl_halfstep_ref does, so within nl_halfstep's TOL
+    c4 = [np.float32(1.3) * (np.float32(20.0) * np.float32(w) / np.float32(2))
+          for w in (ssfm._W1, ssfm._W0)]
+    for shape in [(2**24 + 5,), (2, 2**24)]:
+        for off in (0, 1):
+            n_el = int(np.prod(shape))
+            X = (field(n_el + 1) * 2**24)[off:off + n_el].reshape(shape)
+            for c2 in (None, c4[1]):
+                want = kernels.nl_halfstep(torch.view_as_complex(
+                    torch.view_as_real(X) * 2.0**-24), c4[0])[0]
+                if c2 is not None:
+                    want = kernels.nl_halfstep(want, c2)[0]
+                got = kernels.strang_kicks(X, 2.0**-24, c4[0], c2,
+                                           out=torch.empty_like(X))
+                check(torch.equal(got, want), 2, f"strang_kicks {shape}, "
+                      f"offset {off}, c2 {c2}, differs from the composed "
+                      f"kicks: max abs {float((got - want).abs().max()):.3g}")
+                ref = kernels.strang_kicks_ref(X, 2.0**-24, c4[0], c2)
+                torch.testing.assert_close(got, ref, **TOL)
+                err["strang_kicks"] = max(err["strang_kicks"],
+                                          float((got - ref).abs().max()))
+    del X, want, got, ref
     # ---- the histograms: by rows and by pairs, every path of the launcher
     # The receiver's real input: the KDE bin indices of config 2's eye at
     # 2^20 samples (8192 slots resampled to 128 samples each), caught at the
@@ -1817,6 +1870,10 @@ def main() -> None:
     pairs = {
         "nl_halfstep": (lambda: kernels.nl_halfstep(A, coeff),
                         lambda: kernels.nl_halfstep_ref(A, coeff)),
+        # the o4 scan's boundary pass on config 4's field, in place
+        "strang_kicks": (
+            lambda: kernels.strang_kicks(A2, 1.0, c4[0], c4[1]),
+            lambda: kernels.strang_kicks_ref(A2, 1.0, c4[0], c4[1])),
         "cmul": (lambda: kernels.cmul(A, E), lambda: kernels.cmul_ref(A, E)),
         # config 4's shape: the 2-polarisation field times one spectral row
         "cmul_2pol": (lambda: kernels.cmul(A2, E),
@@ -1856,7 +1913,8 @@ def main() -> None:
     # the composed passes each fused kernel replaces, as the parent's step
     # ran them: phi*h, full_like, polar, cmul and the inverse FFT's 1/n
     # (spectral_phase); cmul, then square, sum and max (cmul_max); square,
-    # sum and max (power_max)
+    # sum and max (power_max); the inverse FFT's 1/n and two nl_halfstep
+    # launches (strang_kicks)
     a_km = np.float32(ssfm.alpha_per_km(0.2))
     composed = {k: cuda_ms(torch, f, inner=10) for k, f in {
         "spectral_phase": lambda: kernels.cmul(S, ssfm._lin_factor(
@@ -1864,6 +1922,8 @@ def main() -> None:
         "cmul_max": lambda: torch.view_as_real(kernels.cmul(
             A, E)).square().sum(-1).max(),
         "power_max": lambda: torch.view_as_real(A).square().sum(-1).max(),
+        "strang_kicks": lambda: kernels.nl_halfstep(kernels.nl_halfstep(
+            A2.mul(2.0**-24), c4[0])[0], c4[1])[0],
     }.items()}
     # Bounds, from the bytes each function must move (inputs read once,
     # outputs written once) and its float32 operations at these shapes:
@@ -1879,8 +1939,11 @@ def main() -> None:
     #                cos and sin (1 each), two scalings, the product (6): 10
     #   cmul_max     as cmul, and 3 flop a sample for the power (the compare
     #                not counted); power_max: 8 B read a sample, 3 flop
+    #   strang_kicks 8 B read + 8 B written a sample of (2, 2^24); the
+    #                scale (2) and two rotations (12 each): 26 flop
     n24 = 2**24
     bounds = {"nl_halfstep": bound_ms(24 * n24, 12 * n24),
+              "strang_kicks": bound_ms(2 * 16 * n24, 2 * 26 * n24),
               "cmul": bound_ms(24 * n24, 6 * n24),
               "spectral_phase": bound_ms(20 * n24, 10 * n24),
               "cmul_max": bound_ms(24 * n24, 9 * n24),
@@ -1911,7 +1974,8 @@ def main() -> None:
         eye_f32, bins=4096, min=0, max=4096), inner=10)
     library["hist (1, 4096) uniform"] = cuda_ms(
         torch, lambda: torch.bincount(uni1[0], minlength=4096), inner=10)
-    bytes_per = {"nl_halfstep": 24, "cmul": 24, "cmul_2pol": 40,
+    bytes_per = {"nl_halfstep": 24, "strang_kicks": 32, "cmul": 24,
+                 "cmul_2pol": 40,
                  "adc_quantize": 8, "spectral_phase": 20, "cmul_max": 24,
                  "power_max": 8}
     gbs = {k: b * 2**24 / (ms10[k][0] * 1e-3) / 1e9
@@ -2056,7 +2120,10 @@ def main() -> None:
     unsharded_walls["config4"] = (t_first, walls)
     e = d.eye
     check(d.n_steps == (4,) * 40, 6, f"n_steps {d.n_steps}")
-    check(launches4["nl_halfstep"] >= 960 and launches4["cmul"] >= 480
+    # the 480 Strang substeps as 40 chains: 40 leading kicks and 480
+    # boundary passes, no nl_halfstep
+    check(launches4["strang_kicks"] == 520 and launches4["nl_halfstep"] == 0
+          and launches4["cmul"] >= 480
           and launches4["histogram2d"] >= 1
           and launches4["adc_quantize"] >= 1, 6, f"launches {launches4}")
     check(d.rin_ok, 6, "a RIN draw was clamped")
@@ -2620,7 +2687,8 @@ def main() -> None:
           "the resumed span chain differs from the uninterrupted one")
     check(bool(torch.isfinite(torch.view_as_real(full4)).all())
           and full4.shape == (2, n), 15, "span chain output")
-    check(launches_chain["nl_halfstep"] == 4 * 4 * 6
+    check(launches_chain["strang_kicks"] == 4 * 13
+          and launches_chain["nl_halfstep"] == 0
           and launches_chain["cmul"] == 4 * 4 * 3, 15,
           f"launches {launches_chain}")
     print(f"phase 15 span_chain_resumable (4 x 80 km o4 spans, (2, 2^24)): "
@@ -3175,6 +3243,8 @@ def main() -> None:
          "max_abs_err": err[k], **numbers(k),
          **({"shape": "by rows (1, 4096) eye window, 2^20 samples"}
             if k == "histogram2d" else {}),
+         **({"shape": "(2, 2^24), two kicks, in place"}
+            if k == "strang_kicks" else {}),
          **({"shape": "2^24 bins, 512 steps (uniform kL = 2); plain_ms one "
                       "call"} if k == "fbg_rk4" else {}),
          **({"also": [{"shape": shape, **numbers(key)}

@@ -372,6 +372,12 @@ def _stage_plan(stages, f0: float, fs: float, *, fiber_extra, dm_const,
     return [one(s) for s in stages]
 
 
+def _fused_steps() -> int:
+    """Fiber steps so far that took the card's fused kernels: the
+    adaptive loop's and the o4 scan's (``fiber`` span's ``fused``)."""
+    return ssfm.STEP_COUNTS["fused"] + ssfm.O4_COUNTS["fused"]
+
+
 def _promote_2pol(f: torch.Tensor, lead: int) -> torch.Tensor:
     """A 1-pol field ``(..., n)`` with ``lead`` leading channel axes as the
     first row of a 2-pol field ``(..., 2, n)``."""
@@ -751,10 +757,9 @@ class _LinkChain(torch.nn.Module):
         if cc["kind"] == "fiber":
             with span("fiber", kind="dbp" if cc["sgn"] < 0 else "fiber",
                       method=cc["method"]) as sp:
-                fused = ssfm.STEP_COUNTS["fused"]
+                fused = _fused_steps()
                 f, steps = self._fiber(f, st, cc, neg_phi)
-                sp.set(steps=steps,
-                       fused=ssfm.STEP_COUNTS["fused"] > fused)
+                sp.set(steps=steps, fused=_fused_steps() > fused)
             n_steps.append(steps)
             return f
         with span("stage", kind=cc["kind"]):

@@ -7,6 +7,7 @@ This is the counterpart of ``opticomlib_tpu/ops/pallas_kernels.py``:
 wrapper         kernel                    replaces (TPU kernel)
 ==============  ========================  =============================
 nl_halfstep     Triton, triton_kernels    pallas_kernels._nl_kernel
+strang_kicks    Triton, triton_kernels    none (XLA's fusion)
 cmul            CUDA C++, csrc/*.cu       pallas_kernels._cmul_kernel
 spectral_phase  CUDA C++, csrc/cmul.cu    none (XLA's fusion)
 cmul_max        CUDA C++, csrc/cmul.cu    none (XLA's fusion)
@@ -22,6 +23,11 @@ built in registers with the inverse's 1/n folded in, and the trailing
 product with its ``max|A|^2``.  ``cmul_max`` has two wrappers over one
 kernel: the product with its maximum (:func:`cmul_max`) and the maximum
 alone (:func:`power_max`); both count as ``cmul_max`` launches.
+
+``strang_kicks`` is the fixed-step 4th-order scan's pass at each boundary
+of its Strang substeps (``ops/ssfm.ssfm_o4_scan_inside``): the inverse
+FFT's 1/n, the trailing kick of one substep and the leading kick of the
+next, in registers.
 
 ``histogram2d`` has two wrappers over one kernel family: the table of index
 pairs (:func:`histogram2d`, the Pallas kernel's function) and its row-batched
@@ -49,7 +55,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
+__all__ = ["nl_halfstep", "nl_halfstep_ref", "strang_kicks",
+           "strang_kicks_ref", "cmul", "cmul_ref",
            "spectral_scale", "spectral_phase", "spectral_phase_ref",
            "cmul_max", "cmul_max_ref", "power_max", "power_max_ref",
            "histogram2d", "histogram2d_ref", "histogram_rows",
@@ -59,9 +66,9 @@ __all__ = ["nl_halfstep", "nl_halfstep_ref", "cmul", "cmul_ref",
            "fbg_rk4_ref", "LAUNCHES", "reset_launches"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"nl_halfstep": 0, "cmul": 0, "spectral_phase": 0, "cmul_max": 0,
-            "histogram2d": 0, "adc_quantize": 0, "fir_filter": 0,
-            "fbg_rk4": 0}
+LAUNCHES = {"nl_halfstep": 0, "strang_kicks": 0, "cmul": 0,
+            "spectral_phase": 0, "cmul_max": 0, "histogram2d": 0,
+            "adc_quantize": 0, "fir_filter": 0, "fbg_rk4": 0}
 
 
 def reset_launches() -> None:
@@ -136,6 +143,40 @@ def nl_halfstep(A: torch.Tensor, coeff, out=None) -> tuple:
         triton_kernels.launch_nl_halfstep(A, float(coeff), B, H)
         LAUNCHES["nl_halfstep"] += 1
     return B, H
+
+
+def strang_kicks_ref(A: torch.Tensor, scale, c1, c2=None) -> torch.Tensor:
+    """Plain version: ``x = A*scale`` (each float32 component times the
+    float32 ``scale``), then ``x = nl_halfstep_ref(x, c1)[0]`` and, with
+    ``c2``, ``x = nl_halfstep_ref(x, c2)[0]``."""
+    s = float(np.float32(scale))
+    x = torch.view_as_complex(torch.view_as_real(A) * s)
+    x = nl_halfstep_ref(x, c1)[0]
+    return x if c2 is None else nl_halfstep_ref(x, c2)[0]
+
+
+def strang_kicks(A: torch.Tensor, scale, c1, c2=None,
+                 out=None) -> torch.Tensor:
+    """One pass at a boundary of Strang substeps: ``x = A*scale``, then the
+    rotation ``x *= exp(i*c1*|x|^2)`` and, with ``c2``, ``x *=
+    exp(i*c2*|x|^2)`` at the magnitudes after the first.
+
+    ``A``: complex64, any shape.  ``scale``: the inverse FFT's 1/n where the
+    caller folds it (a power of two, exact), else 1.  ``c1``, ``c2``:
+    ``gamma*h/2`` of the two kicks [1/W].  Each rotation rounds as an
+    :func:`nl_halfstep` launch does; no rotation is written.  Writes ``x``
+    into ``out`` (default: ``A``, in place) and returns it."""
+    _check(A, "A", torch.complex64)
+    B = A if out is None else _out((out,), A, 1)[0]
+    if not _on_cuda(A, B):
+        return B.copy_(strang_kicks_ref(A, scale, c1, c2))
+    from . import triton_kernels
+    if A.numel():
+        triton_kernels.launch_strang_kicks(
+            A, float(np.float32(scale)), float(c1),
+            None if c2 is None else float(c2), B)
+        LAUNCHES["strang_kicks"] += 1
+    return B
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Sweep the tile constants of the port's cmul, fir_filter and histogram2d
-kernels on a card.
+kernels, and of the Triton boundary pass strang_kicks, on a card.
 
-    python3 scripts/sweep_torch_kernels.py [cmul] [fir] [hist]
+    python3 scripts/sweep_torch_kernels.py [cmul] [fir] [hist] [kicks]
 
 Writes variants of ``opticomlib_tpu_torch/ops/csrc/{cmul,fir_filter,
 histogram2d}.cu`` to ``build/sweep/`` (the constants replaced in the text:
@@ -19,9 +19,12 @@ shape and (2, 2^24) x 1-D, beside ``torch.mul``; ``fir_filter`` at 2^24
 samples with 783, 64, 16 and 8192 taps; the histograms by rows at (1, 4096)
 over 2^20 samples and (16, 4096) over 16 x 2^20, each on a real eye window
 (config 2's receiver input) and on uniform bins, and by pairs at (256, 256)
-over 2^22 and (16, 8192) over 16 x 2^20.  With no argument it sweeps all
-three kernels.  Needs a CUDA card and ``nvcc``; prints the card's name and
-power limit first.
+over 2^22 and (16, 8192) over 16 x 2^20.  ``kicks`` launches the Triton
+``_strang_kicks_kernel`` at each block size and warp count on config 4's
+(2, 2^24) field with two kicks, in place, each held bit for bit to the
+launch as committed (median of 20 times of ten launches in a row).  With
+no argument it sweeps all four.  Needs a CUDA card and ``nvcc`` (Triton
+for ``kicks``); prints the card's name and power limit first.
 """
 import ctypes
 import re
@@ -244,8 +247,8 @@ def sweep_hist(libs, dev, g):
 
 
 def main():
-    which = set(sys.argv[1:]) or {"cmul", "fir", "hist"}
-    if not which <= {"cmul", "fir", "hist"}:
+    which = set(sys.argv[1:]) or {"cmul", "fir", "hist", "kicks"}
+    if not which <= {"cmul", "fir", "hist", "kicks"}:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -262,6 +265,38 @@ def main():
         sweep_cmul(libs, dev, g)
     if "fir" in which:
         sweep_fir(libs, dev, g)
+    if "kicks" in which:
+        sweep_kicks(dev, g)
+
+
+def sweep_kicks(dev, g):
+    import triton
+    from opticomlib_tpu_torch.ops import kernels, ssfm
+    from opticomlib_tpu_torch.ops import triton_kernels as tk
+    A = torch.randn((2, 2**24), generator=g, device=dev,
+                    dtype=torch.complex64) * 0.1
+    c1, c2 = (float(np.float32(1.3) * (np.float32(20.0) * np.float32(w)
+                                       / np.float32(2)))
+              for w in (ssfm._W1, ssfm._W0))
+    want = kernels.strang_kicks(A, 1.0, c1, c2, out=torch.empty_like(A))
+
+    def run(B, out, block, warps):
+        tk._strang_kicks_kernel[(triton.cdiv(B.numel(), block),)](
+            torch.view_as_real(B), torch.view_as_real(out), 1.0, c1, c2,
+            B.numel(), TWO=True, BLOCK=block, num_warps=warps)
+
+    print(f"strang_kicks on (2, 2^24), two kicks, ms (committed: BLOCK "
+          f"{tk._KICKS_BLOCK}, {tk._KICKS_WARPS} warps)")
+    for block in (256, 512, 1024, 2048):
+        for warps in (1, 2, 4, 8, 16):
+            if block < 32 * warps:
+                continue
+            out = torch.empty_like(A)
+            run(A, out, block, warps)
+            assert torch.equal(out, want), (block, warps)
+            B = A.clone()
+            t = ms(lambda: run(B, B, block, warps), reps=20, inner=10)
+            print(f"  BLOCK {block}, {warps} warps: {t:.4f}", flush=True)
 
 
 def sweep_cmul(libs, dev, g):

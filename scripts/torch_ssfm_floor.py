@@ -13,8 +13,9 @@ oracle, against the float64 oracle, and against the same scheme in float64.
 Each float32 run is made four times, each changing one thing:
 
 * ``kernels``: the port's path (the kicks and products are its kernels);
-* ``plain``: ``kernels.nl_halfstep`` and ``kernels.cmul`` replaced by their
-  plain PyTorch versions on the same device;
+* ``plain``: ``kernels.nl_halfstep``, ``kernels.strang_kicks`` and
+  ``kernels.cmul`` replaced by their plain PyTorch versions on the same
+  device;
 * ``host_factor``: the linear factor ``exp(-alpha h/2 + i phi(w) h)`` made
   on the host and copied to the device;
 * ``host_fft``: every FFT made on the host and copied back.
@@ -41,7 +42,8 @@ from opticomlib_tpu_torch.ops import kernels, ssfm  # noqa: E402
 N, FS, P0 = 4096, 640e9, 0.05
 CFG = dict(alpha=0.2, beta_2=-21.0, gamma=1.3)
 L = 40.0
-_ORIG = dict(nl=kernels.nl_halfstep, cmul=kernels.cmul,
+_ORIG = dict(nl=kernels.nl_halfstep, kicks=kernels.strang_kicks,
+             cmul=kernels.cmul,
              lin=ssfm._lin_factor, fft=torch.fft.fft, ifft=torch.fft.ifft)
 
 
@@ -54,11 +56,14 @@ def _lin64(phi_w, alpha, h):
 def _set(mode: str) -> None:
     """Swap the pieces ``mode`` changes; ``kernels`` restores all."""
     kernels.nl_halfstep, kernels.cmul = _ORIG["nl"], _ORIG["cmul"]
+    kernels.strang_kicks = _ORIG["kicks"]
     ssfm._lin_factor = _ORIG["lin"]
     torch.fft.fft, torch.fft.ifft = _ORIG["fft"], _ORIG["ifft"]
     if mode in ("plain", "float64"):
         kernels.nl_halfstep = (lambda A, c, out=None:
                                kernels.nl_halfstep_ref(A, c))
+        kernels.strang_kicks = (lambda A, s, c1, c2=None, out=None:
+                                kernels.strang_kicks_ref(A, s, c1, c2))
         kernels.cmul = lambda A, B, out=None: kernels.cmul_ref(A, B)
     if mode == "float64":
         ssfm._lin_factor = _lin64
@@ -66,10 +71,10 @@ def _set(mode: str) -> None:
         ssfm._lin_factor = (lambda phi_w, alpha, h: _ORIG["lin"](
             phi_w.cpu(), alpha, h).to(phi_w.device))
     if mode == "host_fft":
-        torch.fft.fft = (lambda x, dim=-1: _ORIG["fft"](x.cpu(), dim=dim)
-                         .to(x.device))
-        torch.fft.ifft = (lambda x, dim=-1: _ORIG["ifft"](x.cpu(), dim=dim)
-                          .to(x.device))
+        torch.fft.fft = (lambda x, dim=-1, **k: _ORIG["fft"](
+            x.cpu(), dim=dim, **k).to(x.device))
+        torch.fft.ifft = (lambda x, dim=-1, **k: _ORIG["ifft"](
+            x.cpu(), dim=dim, **k).to(x.device))
 
 
 def schemes(A: torch.Tensor) -> dict:

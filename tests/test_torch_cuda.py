@@ -262,6 +262,80 @@ def test_nan_field_takes_the_composed_steps(cuda_device, monkeypatch):
         ssfm.max_power(composed))
 
 
+def _composed_kicks(A, scale, c1, c2):
+    """What the composed o4 scan launches at a substep boundary: the
+    inverse FFT's exact scaling, then one ``nl_halfstep`` a kick."""
+    x = kernels.nl_halfstep(torch.view_as_complex(
+        torch.view_as_real(A) * scale), c1)[0]
+    return x if c2 is None else kernels.nl_halfstep(x, c2)[0]
+
+
+@pytest.mark.parametrize("shape", [
+    (2**24,), (2**20 + 3,), (2, 2**20), (2, 4099), (5, 3, 1026), (1,),
+    (3,)])
+@pytest.mark.parametrize("misalign", [0, 1])
+@pytest.mark.parametrize("two", [False, True])
+def test_strang_kicks_kernel_bit_equal_to_composed_kicks(
+        cuda_device, shape, misalign, two):
+    """The boundary pass gives the bits of the launches it replaces (the
+    scale, then one ``nl_halfstep`` kernel a kick, both coefficient signs),
+    at odd lengths, two rows and a view 8 bytes off a 16-byte boundary, in
+    place and into ``out``; its plain version rounds ``|x|^2`` without the
+    kernels' fused multiply-add, as ``nl_halfstep_ref`` does, and is held
+    to ``nl_halfstep``'s tolerance."""
+    A = _bits_view(shape, 27, misalign, cuda_device).mul_(2**10)
+    s = 2.0**-10
+    c1, c2 = np.float32(3.71), (np.float32(-5.82) if two else None)
+    want = _composed_kicks(A, s, c1, c2)
+    got = kernels.strang_kicks(A, s, c1, c2, out=torch.empty_like(A))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    torch.testing.assert_close(got, kernels.strang_kicks_ref(A, s, c1, c2),
+                               **TOL)
+    assert kernels.strang_kicks(A, s, c1, c2) is A
+    torch.cuda.synchronize()
+    assert torch.equal(A, want)
+    assert kernels.LAUNCHES["strang_kicks"] == 2
+
+
+@pytest.mark.parametrize("n,two_pol,sgn", [
+    (2**20, False, 1.0), (2**20, True, -1.0), (10**6, False, -1.0),
+    (10**6, True, 1.0), (2**24, True, -1.0)])
+def test_o4_scan_chain_bit_equal_to_composed(cuda_device, monkeypatch, n,
+                                              two_pol, sgn):
+    """``ssfm_o4_scan_inside`` on the card runs its substeps as one chain
+    (a leading kick, then a transform pair and one ``strang_kicks`` pass a
+    substep: 13 passes and no ``nl_halfstep`` for 4 steps) and ends on the
+    composed scan's bits: forward and with the DBP's sign flip, one and two
+    polarisations, a power-of-two length (the 1/n folded into the pass)
+    and another (the inverse keeps it), an off-schedule last step; the
+    last case is the benchmark's DBP span at its size."""
+    from opticomlib_tpu_torch.ops import ssfm
+    A = _launch_field(n, 5, cuda_device)
+    if two_pol:
+        A = torch.stack([A, 0.5 * _launch_field(n, 6, cuda_device)])
+    fs = 160e9
+    phi = torch.as_tensor(ssfm.dispersion_phase(
+        2 * np.pi * np.fft.fftfreq(n) * fs, sgn * -21.0, 0.0),
+        device=cuda_device)
+    hs = (np.full(4, 20.0, np.float32) if n == 2**24
+          else np.asarray([20.0, 20.0, 20.0, 10.0], np.float32))
+    args = (phi, hs, sgn * 1.3, sgn * ssfm.alpha_per_km(0.2))
+    monkeypatch.setattr(ssfm, "O4_COUNTS", dict(fused=0, composed=0))
+    A0 = A.clone()
+    chain = ssfm.ssfm_o4_scan_inside(A, *args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert torch.equal(A, A0)
+    monkeypatch.setattr(ssfm, "_fuses", lambda A: False)
+    composed = ssfm.ssfm_o4_scan_inside(A, *args)
+    assert ssfm.O4_COUNTS == dict(fused=4, composed=4)
+    assert launches["strang_kicks"] == 13 and launches["nl_halfstep"] == 0
+    assert launches["cmul"] == 12
+    assert torch.equal(chain, composed), float(
+        (chain - composed).abs().max())
+
+
 @pytest.mark.parametrize("n,nt,ny", [(2**20, 1, 4096), (2**20, 64, 256),
                                      (10_001, 256, 1024), (0, 1, 16)])
 def test_histogram2d_kernel_matches_plain(cuda_device, n, nt, ny):

@@ -47,6 +47,29 @@ def test_nl_halfstep_ref_matches_pallas(n):
     np.testing.assert_allclose(H.numpy(), hre + 1j * him, **TOL)
 
 
+@pytest.mark.parametrize("shape", [(4096,), (2, 4096), (5001,), (2, 4099),
+                                   (1,)])
+@pytest.mark.parametrize("two", [False, True])
+def test_strang_kicks_ref_is_scale_then_two_kicks(shape, two):
+    """The boundary pass's plain version is the scale, then
+    ``nl_halfstep_ref`` once or twice (the second kick at the magnitudes
+    after the first), bit for bit; the wrapper on the CPU writes it in
+    place or into ``out`` and launches nothing."""
+    s = kernels.spectral_scale(shape[-1])
+    A = torch.from_numpy(_field(shape, 19, 1.0 / s))  # an unscaled inverse
+    c1 = np.float32(0.37)
+    c2 = np.float32(-0.21) if two else None
+    want = kernels.nl_halfstep_ref(A * s, c1)[0]
+    if two:
+        want = kernels.nl_halfstep_ref(want, c2)[0]
+    assert torch.equal(kernels.strang_kicks_ref(A, s, c1, c2), want)
+    out = torch.empty_like(A)
+    assert kernels.strang_kicks(A, s, c1, c2, out=out) is out
+    assert torch.equal(out, want)
+    assert kernels.strang_kicks(A, s, c1, c2) is A and torch.equal(A, want)
+    assert kernels.LAUNCHES["strang_kicks"] == 0
+
+
 @pytest.mark.parametrize("n", [4096, 5000])
 def test_cmul_ref_matches_pallas(n):
     A, B = _field(n, 2), _field(n, 3)
@@ -257,15 +280,28 @@ def test_wrappers_take_plain_path_on_cpu():
     Cr, mr = kernels.cmul_max_ref(A, B)
     assert torch.equal(C, Cr) and torch.equal(m, mr)
     assert torch.equal(kernels.power_max(A), kernels.power_max_ref(A))
-    assert kernels.LAUNCHES == {"nl_halfstep": 0, "cmul": 0,
-                                "spectral_phase": 0, "cmul_max": 0,
-                                "histogram2d": 0, "adc_quantize": 0,
-                                "fir_filter": 0, "fbg_rk4": 0}
+    assert torch.equal(kernels.strang_kicks(A.clone(), 0.5, 0.2, -0.1),
+                       kernels.strang_kicks_ref(A, 0.5, 0.2, -0.1))
+    assert kernels.LAUNCHES == {"nl_halfstep": 0, "strang_kicks": 0,
+                                "cmul": 0, "spectral_phase": 0,
+                                "cmul_max": 0, "histogram2d": 0,
+                                "adc_quantize": 0, "fir_filter": 0,
+                                "fbg_rk4": 0}
     assert "triton" not in sys.modules
 
 
 @pytest.mark.parametrize("call", [
     lambda: kernels.nl_halfstep(torch.zeros(4), 0.1),              # dtype
+    lambda: kernels.strang_kicks(torch.zeros(4), 1.0, 0.1),        # dtype
+    lambda: kernels.strang_kicks(torch.zeros((2, 8), dtype=torch.complex64)
+                                 [:, ::2], 1.0, 0.1),              # layout
+    lambda: kernels.strang_kicks(torch.zeros(4, dtype=torch.complex64), 1.0,
+                                 0.1, out=torch.zeros(
+                                     5, dtype=torch.complex64)),   # out
+    lambda: kernels.strang_kicks(torch.zeros(4, dtype=torch.complex64), 1.0,
+                                 0.1, out=torch.zeros(
+                                     4, dtype=torch.complex64,
+                                     device="meta")),              # devices
     lambda: kernels.cmul(torch.zeros(4, dtype=torch.complex64),
                          torch.zeros(3, dtype=torch.complex64)),   # shape
     lambda: kernels.cmul(torch.zeros((2, 8), dtype=torch.complex64)[:, ::2],

@@ -221,3 +221,119 @@ def test_step_rule_on_arrays_equals_scalars(h_max):
         assert np.array(hs[c], f32).tobytes() == np.array(want[c],
                                                           f32).tobytes()
     assert steps[0] == 1 and steps[1] == 8 and steps[2] > steps[3] > 10
+
+
+# ----------------------------------------------------------------------
+# the fixed-step o4 scan: the card's chain of Strang substeps
+# ----------------------------------------------------------------------
+O4_HS = np.asarray([15.0, 15.0, 15.0, 5.0], np.float32)  # off-schedule last
+
+
+def _o4_field(launch_field, two_pol):
+    A, phi_w = launch_field
+    if two_pol:
+        A = np.stack([A, 0.5 * A[::-1]]).astype(np.complex64)
+    return torch.from_numpy(A), torch.from_numpy(phi_w)
+
+
+def _pencil_like(B, E):
+    return torch.fft.ifft(kernels.cmul(torch.fft.fft(B, dim=-1), E), dim=-1)
+
+
+@pytest.mark.parametrize("case", ["cpu", "spectral", "strided", "chain"])
+@pytest.mark.parametrize("two_pol", [False, True])
+def test_o4_scan_dispatch_counts_steps_by_path(launch_field, monkeypatch,
+                                               case, two_pol):
+    """``ssfm_o4_scan_inside`` takes the chain only where ``_fuses(A)``
+    holds and no ``spectral`` hook is given, and counts each step in
+    ``O4_COUNTS`` by its path.  Here the card's device check is made true
+    (``Tensor.is_cuda`` patched; the kernels' wrappers still take their
+    plain versions): a contiguous complex64 field then takes the chain,
+    which leaves its input alone, launches nothing and ends near the
+    composed scan (the CPU's inverse FFT scales inside the transform, so
+    only the card's chain is bit-equal, tests/test_torch_cuda.py); a
+    ``spectral`` hook and a non-contiguous field compose.  Unpatched, the
+    CPU composes."""
+    A, phi_w = _o4_field(launch_field, two_pol)
+    a_km = tssfm.alpha_per_km(CFG["alpha"])
+    composed = tssfm.ssfm_o4_scan_inside(A, phi_w, O4_HS, CFG["gamma"], a_km)
+    monkeypatch.setattr(tssfm, "O4_COUNTS", dict(fused=0, composed=0))
+    if case != "cpu":
+        monkeypatch.setattr(torch.Tensor, "is_cuda",
+                            property(lambda self: True))
+    spectral = _pencil_like if case == "spectral" else None
+    if case == "strided":  # the composed steps are spied on: the kicks
+        # refuse a non-contiguous field
+        A = torch.stack([A, A], dim=-1)[..., 0]
+        assert not A.is_contiguous()
+        monkeypatch.setattr(tssfm, "_o4_step", lambda A, *a, **k: A)
+    A0 = A.clone()
+    kernels.reset_launches()
+    out = tssfm.ssfm_o4_scan_inside(A, phi_w, O4_HS, CFG["gamma"], a_km,
+                                    spectral=spectral)
+    n = len(O4_HS)
+    assert tssfm.O4_COUNTS == (dict(fused=n, composed=0) if case == "chain"
+                               else dict(fused=0, composed=n))
+    assert torch.equal(A, A0) and not any(kernels.LAUNCHES.values())
+    if case != "strided":
+        assert _rel_l2(out.numpy(), composed.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [N, N + 3])
+@pytest.mark.parametrize("sgn", [1.0, -1.0])
+def test_o4_chain_matches_jax(launch_field, monkeypatch, n, sgn):
+    """The chain (forced as above) against the JAX package's fixed-step o4
+    at a power-of-two length and another one, forward and with the DBP's
+    sign flip (negative gamma, alpha and phase): the steps the JAX schedule
+    takes, and the fields within the scan's parity tolerance (relative L2
+    <= 1e-4, tests/test_torch_schemes.py)."""
+    A = launch_field[0]
+    A = np.concatenate([A, A[:n - N]]) if n > N else A
+    w = 2 * np.pi * np.fft.fftfreq(n) * R * SPS
+    cfg = dict(alpha=sgn * CFG["alpha"], beta_2=sgn * CFG["beta_2"],
+               gamma=sgn * CFG["gamma"])
+    want = jssfm.ssfm_scan_o4(A, w, 50.0, h=15.0, **cfg)
+    monkeypatch.setattr(tssfm, "O4_COUNTS", dict(fused=0, composed=0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    got, steps = tssfm.ssfm_scan_o4(torch.from_numpy(A), w, 50.0, h=15.0,
+                                    **cfg)
+    assert steps == len(jssfm.ssfm_step_schedule(50.0, 15.0)) == 4
+    assert tssfm.O4_COUNTS == dict(fused=steps, composed=0)
+    assert _rel_l2(got.numpy(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_fiber_span_says_whether_the_o4_scan_fused(monkeypatch, fused):
+    """The ``fiber`` spans of a fixed-step o4 fiber and its DBP carry
+    ``fused``: True where the scan took the chain (forced here), False
+    where it composed; steps and answers unchanged."""
+    from opticomlib_tpu_torch import link
+    from opticomlib_tpu_torch.params import SimParams
+    from opticomlib_tpu_torch.utils import profiling
+    span = dict(length=40.0, alpha=0.2, beta_2=-21.0, gamma=1.3,
+                method="o4", h=10.0)
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=10.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        stages=(link.FiberSpec(**span), link.EDFASpec(G=8),
+                link.DBPSpec(undo_gain_dB=8, **span)))
+    prog = link.build_link(spec, 2**8, SimParams.create(sps=16, R=R,
+                                                        _warn=False),
+                           device="cpu")
+    bits = np.random.default_rng(4).integers(0, 2, 2**8).astype(np.uint8)
+    plain = prog.dsp(bits=bits, seed=1)
+    if fused:
+        monkeypatch.setattr(tssfm, "_fuses", lambda A: True)
+    monkeypatch.setattr(tssfm, "O4_COUNTS", dict(fused=0, composed=0))
+    profiling.record(True)
+    try:
+        res = prog.dsp(bits=bits, seed=1)
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+    fibs = [r for r in recs if r["name"] == "fiber"]
+    assert [r["attrs"]["kind"] for r in fibs] == ["fiber", "dbp"]
+    assert all(r["attrs"]["fused"] is fused for r in fibs)
+    assert res.n_steps == plain.n_steps == (4, 4)
+    assert tssfm.O4_COUNTS["fused" if fused else "composed"] == 8
+    assert res.n_errors == plain.n_errors
