@@ -3,7 +3,9 @@
 counts the calls returned and the entry driver's ``receiver_bytes``) over
 the device's busy time in the traced window, in %.  Held to the published
 H100 SXM peaks; meaningful where the field does not fit in the 50 MB L2
-(2^24 samples)."""
+(2^24 samples).  Over several cards each card's share is the calls' work
+over the world's size (sharding adds no least work), over the busy time of
+the card traced (rank 0's)."""
 from perfbench.pbcore import work
 
 
@@ -19,4 +21,4 @@ def read(ctx):
                                      ch["n_steps"])
             by += b
             fl += f
-    return 100.0 * work.least_time_s(by, fl) / ctx.busy_s
+    return 100.0 * work.least_time_s(by, fl) / ctx.world / ctx.busy_s

@@ -50,16 +50,21 @@ def benchmark() -> dict:
     return load_json(ROOT / "BENCHMARK.json")
 
 
+def workload(name: str, bench: dict = None) -> dict:
+    """The entry of ``BENCHMARK.json``'s ``workloads`` named ``name``."""
+    by_name = {w["name"]: w for w in (bench or benchmark())["workloads"]}
+    if name not in by_name:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json; have "
+                       f"{sorted(by_name)}")
+    return by_name[name]
+
+
 def cell(name: str, traffic: dict = None) -> SimpleNamespace:
     """Everything one cell needs, found by name; ``traffic``: keys of the
     traffic mix replaced (the tests' small sizes), before the entry it
     names is loaded."""
     bench = benchmark()
-    by_name = {w["name"]: w for w in bench["workloads"]}
-    if name not in by_name:
-        raise KeyError(f"no workload {name!r} in BENCHMARK.json; have "
-                       f"{sorted(by_name)}")
-    w = by_name[name]
+    w = workload(name, bench)
     cfg = load_json(_named("configs", w["config"], ".json"))
     mix = dict(load_json(_named("traffic", w["traffic"], ".json")),
                **(traffic or {}))

@@ -65,9 +65,18 @@ def make(cfg: dict, n: int, seed: int, device) -> dict:
     return out
 
 
+def channel_draws(cfg: dict, n: int, seed: int, key: int, k: int, ch: int,
+                  device) -> dict:
+    """The draws of channel ``ch`` of call ``k`` of the run's stream
+    ``key`` (:data:`CALL`, :data:`WARM`)."""
+    return make(cfg, n, derive(seed, DRAWS, key, k, ch), device)
+
+
 def call_draws(cfg: dict, n: int, channels: int, seed: int, key: int,
-               k: int, device) -> list:
-    """The draws of call ``k`` of the run's stream ``key``
-    (:data:`CALL`, :data:`WARM`), one dict a channel."""
-    return [make(cfg, n, derive(seed, DRAWS, key, k, ch), device)
+               k: int, device, only=None) -> list:
+    """The draws of call ``k`` of the run's stream ``key``, one dict a
+    channel; ``only``: the channels to draw (``None`` in the others'
+    places), all by default."""
+    return [channel_draws(cfg, n, seed, key, k, ch, device)
+            if only is None or ch in only else None
             for ch in range(channels)]

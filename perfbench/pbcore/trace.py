@@ -8,8 +8,9 @@ the trace is there to read.
 :func:`summarize` reduces the trace to what the per-layer readers take:
 the traced window (the first event's start to the last one's end),
 the union of the device's busy intervals in it, kernel launches and
-device-to-host copies counted, device time by kernel, and the idle gaps
-labelled by the runtime call the host was in, or had last made."""
+device-to-host copies counted, device time by kernel, the idle gaps
+labelled by the runtime call the host was in, or had last made, and the
+device's events themselves (``(start_ns, end_ns, name)``)."""
 from __future__ import annotations
 
 import bisect
@@ -61,15 +62,12 @@ def summarize(prof, n_calls: int, top: int = 10) -> dict:
                                                              "Memset")))
     dtoh = sum(1 for e in dev_ev if e[2].startswith("Memcpy DtoH"))
     by_name = defaultdict(float)
-    busy, gaps, end = 0.0, [], w0
+    gaps, end = [], w0
     for s, t, name in dev_ev:
-        s, t = max(s, w0), min(t, w1)
-        by_name[name[:100]] += max(t - s, 0) / 1e9
+        by_name[name[:100]] += (t - s) / 1e9
         if s > end:
             gaps.append((end, s))
-        if t > end:
-            busy += t - max(s, end)
-            end = t
+        end = max(end, t)
     if w1 > end:
         gaps.append((end, w1))
 
@@ -88,6 +86,20 @@ def summarize(prof, n_calls: int, top: int = 10) -> dict:
     def ranked(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])
                 [:top]]
-    return dict(window_s=(w1 - w0) / 1e9, busy_s=busy / 1e9,
+    return dict(window_s=(w1 - w0) / 1e9,
+                busy_s=union_s([(s, t) for s, t, _ in dev_ev]),
                 n_calls=n_calls, kernels=kernels, dtoh=dtoh,
-                device_ops=ranked(by_name), idle_gaps=ranked(idle))
+                device_ops=ranked(by_name), idle_gaps=ranked(idle),
+                events=dev_ev)
+
+
+def union_s(intervals) -> float:
+    """The seconds that the union of ``(start_ns, end_ns)`` intervals
+    covers."""
+    busy, end = 0, None
+    for s, t in sorted(intervals):
+        if end is None or s > end:
+            busy, end = busy + t - s, t
+        elif t > end:
+            busy, end = busy + t - end, t
+    return busy / 1e9

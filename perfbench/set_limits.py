@@ -8,7 +8,11 @@ the card at the cell's own size, in one process:
   reference;
 * the control: for each of ``--control-seeds`` seeds, the reference
   computed in bfloat16 (:mod:`perfbench.reference.plainlink`) put in the
-  program's place, against the float64 reference.
+  program's place, against the float64 reference, on the same calls (one
+  card is enough).
+
+A cell of several cards takes ``--seeds 0`` here: its sound readings are
+its runs' checks, which ``run.py`` prints.
 
     python3 perfbench/set_limits.py --workload <cell> --seeds 12 \
         --control-seeds 3 [--first-seed N] [--out FILE]
@@ -37,21 +41,31 @@ def readings(name: str, seeds, control_seeds, device="cuda:0",
     c = cells.cell(name, (overrides or {}).get("traffic"))
     traffic = c.traffic
     cfg, dev = c.cfg, torch.device(device)
-    prog, n, n_bits, C = run.build_program(c, traffic, dev)
-    captured = []
-    prog.register_forward_hook(lambda _m, _i, out: captured.append(out[0]))
+    n, C = int(traffic["samples"]), int(traffic["channels"])
+    n_bits = n // cfg["params"]["sps"]
     out = {"sound": [], "control": []}
+    if seeds and c.chips > 1:
+        raise ValueError(f"{name} runs on {c.chips} cards: its sound "
+                         "readings are its runs' checks (run.py)")
 
     def calls(seed):
         pool = draws.bits_pool(seed, traffic["pool"], C, n_bits)
         for k in range(int(traffic["check_calls"])):
-            yield k, pool[k % len(pool)], draws.call_draws(
-                cfg, n, C, seed, draws.CALL, k, dev)
+            yield k, pool[k % len(pool)]
 
+    def channel(seed, k, ch):
+        return draws.channel_draws(cfg, n, seed, draws.CALL, k, ch, dev)
+
+    if seeds:
+        prog = run.build_program(c, traffic, dev)[0]
+        captured = []
+        prog.register_forward_hook(
+            lambda _m, _i, out: captured.append(out[0]))
     for seed in seeds:
         rows, t = [], time.perf_counter()
-        for k, bits, d in calls(seed):
+        for k, bits in calls(seed):
             captured.clear()
+            d = draws.call_draws(cfg, n, C, seed, draws.CALL, k, dev)
             res = c.entry.call(prog, bits, draws.derive(seed, draws.CALL, k),
                                d, traffic)
             vs = list(captured)
@@ -62,19 +76,22 @@ def readings(name: str, seeds, control_seeds, device="cuda:0",
         w = compare.worst(rows, c.entry.NAMES)
         out["sound"].append(dict(seed=seed, **w))
         log(f"sound seed {seed} ({time.perf_counter() - t:.1f} s): {w}")
-    del prog
-    captured.clear()
+    if seeds:
+        del prog
+        captured.clear()
     for seed in control_seeds:
-        rows = []
-        for k, bits, d in calls(seed):
+        rows, t = [], time.perf_counter()
+        for k, bits in calls(seed):
             for ch in range(C):
-                ref = c.reference.run(cfg, traffic, bits[ch], d[ch], dev)
-                low = c.reference.run(cfg, traffic, bits[ch], d[ch], dev,
+                d = channel(seed, k, ch)
+                ref = c.reference.run(cfg, traffic, bits[ch], d, dev)
+                low = c.reference.run(cfg, traffic, bits[ch], d, dev,
                                       precision="bfloat16")
                 rows.append(compare.row(c.entry, low, low["v"], ref))
+                del ref, low, d
         w = compare.worst(rows, c.entry.NAMES)
         out["control"].append(dict(seed=seed, **w))
-        log(f"control seed {seed}: {w}")
+        log(f"control seed {seed} ({time.perf_counter() - t:.1f} s): {w}")
     out["lower"] = {k: max(r[k] for r in out["sound"])
                     for k in c.entry.NAMES} if out["sound"] else {}
     out["upper"] = {k: min(r[k] for r in out["control"])

@@ -16,7 +16,8 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 #: the CPU size of each cell (samples a channel)
-SMALL = {"ook_50km.dsp_2e24": 2**16, "longhaul_dbp.dsp_2e24": 2**14}
+SMALL = {"ook_50km.dsp_2e24": 2**16, "longhaul_dbp.dsp_2e24": 2**14,
+         "ook_50km.wdm16_2e24_4chip": 2**14}
 
 #: a sweep of 4 channels through the ``dsp_wdm`` entry driver, in place of
 #: a cell's own traffic (its limits stay the cell's)

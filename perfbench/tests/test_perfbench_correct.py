@@ -28,6 +28,7 @@ def test_sound_run_is_correct(cell):
     out = _run(cell)
     assert out["correct"], out["checks"]
     assert out["attempted"] >= 1 and out["failed"] == 0
+    assert out["device"]["count"] == cells.cell(cell).chips
     assert set(out["metrics"]) >= {"setup_s", "samples_per_s"}
     assert list(out)[-1] == "checks"
 

@@ -32,6 +32,9 @@ def test_summarize(monkeypatch):
     assert gaps["cudaMemcpyAsync"] == pytest.approx(10e-6)
     assert gaps["after cudaMemcpyAsync"] == pytest.approx(35e-6)
     assert sum(gaps.values()) == pytest.approx(55e-6)
+    assert [e[2] for e in s["events"]] == ["kern_a", "Memcpy DtoH (Device -> "
+                                           "Pageable)", "kern_a",
+                                           "Memset (Device)"]
 
 
 def test_readers():
@@ -40,7 +43,7 @@ def test_readers():
     calls = [[dict(n_steps=[58])], [dict(n_steps=[58])]]
     n, n_bits = 2**24, 2**18
     ctx = SimpleNamespace(cfg=c.cfg, traffic=c.traffic, entry=c.entry, n=n,
-                          n_bits=n_bits, channels=1, calls=calls,
+                          n_bits=n_bits, channels=1, world=1, calls=calls,
                           n_calls=2, busy_s=0.2, window_s=0.32,
                           kernels=8846, dtoh=194)
     assert readers["device.idle_pct"].read(ctx) == pytest.approx(37.5)
@@ -96,3 +99,39 @@ def test_every_stage_class_is_counted():
     cfg["link"]["stages"] = [{"spec": "TapSpec"}]
     with pytest.raises(ValueError):
         work.channel_work(cfg, n, n // 64, 0, [])
+
+
+def test_collective_share_is_the_union_of_the_nccl_kernels():
+    c = cells.cell("ook_50km.wdm16_2e24_4chip")
+    readers = {m["name"]: r for m, r in c.per_layer}
+    read = readers["device.collective_pct"].read
+    ev = [(0, 40 * US, "kern_a"),
+          (10 * US, 30 * US, "ncclDevKernel_SendRecv(args)"),
+          (20 * US, 50 * US, "ncclDevKernel_AllReduce_Sum_f32(args)"),
+          (60 * US, 100 * US, "kern_b")]
+    ctx = SimpleNamespace(busy_s=90e-6, window_s=100e-6, events=ev)
+    assert read(ctx) == pytest.approx(100 * 40 / 90)
+    assert trace.union_s([(s, t) for s, t, _ in ev]) == pytest.approx(90e-6)
+    ctx.events = [e for e in ev if not e[2].startswith("nccl")]
+    assert read(ctx) is None
+    ctx.busy_s = None
+    assert read(ctx) is None
+
+
+def test_four_card_readers_take_a_cards_share_of_the_work():
+    """Rank 0's roofline: the 16 channels' least work over the world's
+    size, over its busy time; the eye's graph share from the answers."""
+    c = cells.cell("ook_50km.wdm16_2e24_4chip")
+    readers = {m["name"]: r for m, r in c.per_layer}
+    n, n_bits = 2**24, 2**18
+    calls = [[dict(n_steps=[58], eye_graph=True) for _ in range(16)]] * 3
+    ctx = SimpleNamespace(cfg=c.cfg, traffic=c.traffic, entry=c.entry, n=n,
+                          n_bits=n_bits, channels=16, world=4, calls=calls,
+                          n_calls=3, busy_s=3.6, window_s=3.9)
+    rx = c.entry.receiver_bytes(c.cfg, c.traffic, n, n_bits)
+    by, fl = work.channel_work(c.cfg, n, n_bits, rx, [58])
+    assert readers["kernels.roofline_pct"].read(ctx) == pytest.approx(
+        100 * work.least_time_s(48 * by, 48 * fl) / 4 / 3.6)
+    assert readers["rx.eye_graph_pct"].read(ctx) == 100.0
+    ctx.calls = [[dict(ch, eye_graph=False) for ch in calls[0]]] + calls[1:]
+    assert readers["rx.eye_graph_pct"].read(ctx) == pytest.approx(200 / 3)
