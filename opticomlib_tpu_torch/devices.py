@@ -22,6 +22,18 @@ devices' call order and shapes, and move the draws to the signal's device
 key, from a ``torch.Generator`` on the signal's device
 (:mod:`opticomlib_tpu_torch.rng`).
 
+Noisy devices (``LASER``, ``EDFA``, ``PD``) also take ``noise=``: unit
+normal draws by name (``phase``, ``rin``; ``ase``; ``thermal``, ``shot``)
+in place of the generator's, as the fused link's ``noise=``; the same
+draws as a key's generator would make give the same output.
+
+Spans (:mod:`opticomlib_tpu_torch.utils.profiling`, off by default): each
+call is one, under the fused link's layer names: ``tx`` (``DAC``,
+``LASER``, ``PM``, ``MZM``; attribute ``device``), ``fiber`` (``FIBER``,
+so ``DBP``), ``stage`` (``EDFA``, ``DM``, ``BPF``; ``kind``), ``rx.pd``
+(``PD``, ``LPF``, ``ADC``; ``device``), ``rx.eye`` (``GET_EYE``) and
+``rx.decide`` (``SAMPLER``; ``step``).
+
 Device inventory (reference file:line): PRBS 63-182, DAC 185-350, LASER
 353-510, PM 513-617, MZM 620-785, BPF 788-826, EDFA 829-942, DM 945-1035,
 FIBER 1038-1206, DBP 1209-1283, LPF 1286-1375, PD 1378-1555, ADC 1558-1632,
@@ -52,6 +64,7 @@ from .signals import (NULL, BinarySequence, ElectricalSignal, OpticalSignal,
 from .utils.analysis import db, idb, idbm, si, tic, toc
 from .utils.analysis import dispersion as _dispersion_of, tau_g as _tau_g
 from .utils.analysis import rcos as _rcos_spectrum
+from .utils.profiling import span, spanned
 
 __all__ = ["PRBS", "DAC", "LASER", "PM", "MZM", "BPF", "EDFA", "DM", "FIBER",
            "DBP", "LPF", "PD", "ADC", "GET_EYE", "SAMPLER", "FBG",
@@ -62,6 +75,24 @@ def _legacy_normal(sigma, shape, device) -> torch.Tensor:
     """``np.random.normal(0, sigma, shape)`` (float64, the legacy global
     stream) on ``device``."""
     return torch.as_tensor(np.random.normal(0, sigma, shape), device=device)
+
+
+def _noise_source(key, noise, device):
+    """The generator of a noisy device's draws (:func:`rng.resolve`), or
+    ``None`` where ``noise`` injects them (the global stream is then not
+    advanced) or where the legacy NumPy draws apply."""
+    if noise is None:
+        return rng.resolve(key, device)
+    if key is not None:
+        raise ValueError("pass `key` or `noise`, not both.")
+    return None
+
+
+def _injected(noise, name: str, device) -> torch.Tensor:
+    """The unit draw ``noise[name]`` as float32 on ``device``."""
+    if name not in noise:
+        raise ValueError(f"`noise` has no {name!r} draw.")
+    return noise_ops.as_draw(noise[name], device)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +124,7 @@ def _support(span: int, sps: int, half: float):
     return centre - reach, centre + reach + 1
 
 
+@spanned("tx", device="DAC")
 def DAC(input, pulse_shape: str = "nrz", coupling: str = "DC",
         Vpp: Optional[float] = 1.0, offset: Optional[float] = 0.0,
         h=None, BW: Optional[float] = None, **kwargs) -> ElectricalSignal:
@@ -204,39 +236,50 @@ def DAC(input, pulse_shape: str = "nrz", coupling: str = "DC",
 # ---------------------------------------------------------------------------
 # LASER (reference devices.py:353-510)
 # ---------------------------------------------------------------------------
+@spanned("tx", device="LASER")
 def LASER(P0, lw: Optional[float] = None, rin: Optional[float] = None,
-          df: Optional[float] = None, key=None) -> OpticalSignal:
+          df: Optional[float] = None, key=None,
+          noise: Optional[dict] = None) -> OpticalSignal:
     """CW laser complex envelope on ``gv``'s device: ``gv.N * gv.sps``
     samples of amplitude ``sqrt(idbm(P0))``, with Wiener phase noise
     (variance ``2*pi*lw*dt`` a step; a walk is drawn whenever ``lw`` is not
     None, even 0), Gaussian RIN (variance ``idb(rin)*fs``; raises if a draw
     crosses -1) and frequency offset ``df`` on ``gv.t`` (reference
     devices.py:353-510).  ``key``: an int seed or ``torch.Generator`` for
-    keyed draws (:mod:`opticomlib_tpu_torch.rng`)."""
+    keyed draws (:mod:`opticomlib_tpu_torch.rng`).  ``noise``: unit normal
+    draws to use instead, ``{"phase": (n,), "rin": (n,)}`` (each needed
+    only where it applies; ``phase`` only for ``lw > 0``): the same draws
+    as a key's generator would make give the same output."""
     tic()
     dev = current_device()
-    t = gv.t
-    out = torch.full((t.size,), float(np.sqrt(idbm(P0))), dtype=torch.float64,
+    n = gv.nsamples
+    out = torch.full((n,), float(np.sqrt(idbm(P0))), dtype=torch.float64,
                      device=dev)
 
-    gen = rng.resolve(key, dev)
+    gen = _noise_source(key, noise, dev)
 
-    if lw is not None:
+    if lw is not None and (noise is None or lw > 0):
         sigma = np.sqrt(2 * pi * lw * gv.dt)
-        if gen is not None:
-            phase_noise = noise_ops.wiener_phase(t.size, sigma, gen)
+        if noise is not None:
+            phase_noise = noise_ops.wiener_phase(
+                n, sigma, None, _injected(noise, "phase", dev))
+        elif gen is not None:
+            phase_noise = noise_ops.wiener_phase(n, sigma, gen)
         else:
             phase_noise = torch.as_tensor(
-                np.cumsum(np.random.normal(0, sigma, t.size)), device=dev)
+                np.cumsum(np.random.normal(0, sigma, n)), device=dev)
         if lw > 0:
             out = out * torch.exp(1j * phase_noise)
 
     if rin is not None:
         sigma = np.sqrt(idb(rin) * gv.fs)
-        if gen is not None:
-            rin_noise = noise_ops.gaussian((t.size,), sigma, gen)
+        if noise is not None:
+            rin_noise = noise_ops.gaussian(
+                (n,), sigma, None, _injected(noise, "rin", dev))
+        elif gen is not None:
+            rin_noise = noise_ops.gaussian((n,), sigma, gen)
         else:
-            rin_noise = _legacy_normal(sigma, t.size, dev)
+            rin_noise = _legacy_normal(sigma, n, dev)
         if rin_noise.min() < -1:
             raise ValueError(
                 "Noise power is to high, try decrease RIN parameter.")
@@ -247,7 +290,7 @@ def LASER(P0, lw: Optional[float] = None, rin: Optional[float] = None,
             raise ValueError(
                 "The laser frequency is out of the Nyquist range. "
                 "Try increase the sampling frequency.")
-        out = out * torch.exp(1j * torch.as_tensor(2 * pi * df * t,
+        out = out * torch.exp(1j * torch.as_tensor(2 * pi * df * gv.t,
                                                    device=dev))
 
     output = OpticalSignal(out)
@@ -258,6 +301,7 @@ def LASER(P0, lw: Optional[float] = None, rin: Optional[float] = None,
 # ---------------------------------------------------------------------------
 # PM (reference devices.py:513-617)
 # ---------------------------------------------------------------------------
+@spanned("tx", device="PM")
 def PM(op_input: OpticalSignal, el_input, Vpi: float = 5.0) -> OpticalSignal:
     """Optical phase modulator: ``E * exp(j*pi*u(t)/Vpi)`` (reference
     devices.py:513-617); a scalar ``el_input`` is a static phase.  The
@@ -292,6 +336,7 @@ def _zero_pol(x: torch.Tensor, kill: int) -> torch.Tensor:
     return x
 
 
+@spanned("tx", device="MZM")
 def MZM(op_input: OpticalSignal, el_input, bias: float = 0.0,
         Vpi: float = 5.0, loss_dB: float = 0.0, ER_dB: float = 26.0,
         pol: str = "x", BW: Optional[float] = None) -> OpticalSignal:
@@ -346,6 +391,7 @@ def _filtered(x: torch.Tensor, H: np.ndarray) -> torch.Tensor:
     return filters.apply_freq_response(x, torch.as_tensor(H, device=x.device))
 
 
+@spanned("stage", kind="bpf")
 def BPF(input: OpticalSignal, BW: float, n: int = 4) -> OpticalSignal:
     """Optical band-pass filter (baseband low-pass equivalent): n-th order
     Bessel, zero-phase, as an FFT-domain multiply by the filtfilt-equivalent
@@ -366,13 +412,17 @@ def BPF(input: OpticalSignal, BW: float, n: int = 4) -> OpticalSignal:
 # ---------------------------------------------------------------------------
 # EDFA (reference devices.py:829-942)
 # ---------------------------------------------------------------------------
+@spanned("stage", kind="edfa")
 def EDFA(input: OpticalSignal, G: float, NF: float,
-         BW: Optional[float] = None, key=None) -> OpticalSignal:
+         BW: Optional[float] = None, key=None,
+         noise: Optional[dict] = None) -> OpticalSignal:
     """Flat-gain amplifier: field gain ``sqrt(G)`` plus ASE of power
     ``NF*h*f0*(G-1)*fs`` split over two polarizations x (re, im)
     (reference devices.py:829-942).  The output always carries 2
     polarizations, the ASE on its ``.noise`` track; ``BW`` adds an optical
-    band-pass (:func:`BPF`); ``key`` as for :func:`LASER`."""
+    band-pass (:func:`BPF`); ``key`` as for :func:`LASER`; ``noise``: the
+    unit normal draws to use instead, ``{"ase": (4, n)}`` (rows: x and y
+    real, then x and y imaginary)."""
     tic()
     if not isinstance(input, OpticalSignal):
         raise TypeError("`input` must be of type 'optical_signal'.")
@@ -387,8 +437,11 @@ def EDFA(input: OpticalSignal, G: float, NF: float,
             output.noise = _zero_pol(output.noise, 1)
 
     P_ase = noise_ops.ase_power(G, NF, gv.f0, gv.fs)
-    gen = rng.resolve(key, input.device)
-    if gen is not None:
+    gen = _noise_source(key, noise, input.device)
+    if noise is not None:
+        ase = noise_ops.ase_draws(input.size, P_ase, None,
+                                  _injected(noise, "ase", input.device))
+    elif gen is not None:
         ase = noise_ops.ase_draws(input.size, P_ase, gen)
     else:
         d = torch.as_tensor(np.sqrt(P_ase / 4) * np.random.randn(4, input.size),
@@ -407,6 +460,7 @@ def EDFA(input: OpticalSignal, G: float, NF: float,
 # ---------------------------------------------------------------------------
 # DM (reference devices.py:945-1035)
 # ---------------------------------------------------------------------------
+@spanned("stage", kind="dm")
 def DM(input: OpticalSignal, D: float, retH: bool = False):
     """Pure dispersive medium: frequency-domain phase
     ``H = exp(j*w^2*D/2)`` with ``D`` in [ps^2] (reference
@@ -447,7 +501,9 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     km, ``alpha`` dB/km, ``beta_2`` ps^2/km, ``beta_3`` ps^3/km, ``gamma``
     1/W/km.  The kicks and spectral multiplies of every step are the
     ``nl_halfstep`` and ``cmul`` kernels (:mod:`opticomlib_tpu_torch.ops.
-    ssfm`).
+    ssfm`).  Its constants, the frequency axis and the dispersion phase,
+    are computed on the input's device in float64, from NumPy's operations
+    in NumPy's order (the host's numbers where ``beta_3 == 0``).
 
     ``mesh``: a mesh of ranks with a 'time' axis (and 'wdm';
     :func:`opticomlib_tpu_torch.parallel.make_link_mesh`): the sample axis
@@ -473,7 +529,25 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     Returns a complex64 :class:`OpticalSignal` whose ``n_steps`` attribute
     is the number of steps taken (attempted, for the step-doubling
     schemes).
+
+    The call is a ``fiber`` span (``kind="staged"``, ``method``, and on
+    return ``steps`` and ``fused``: whether a step took the card's fused
+    kernels), the host's constants of the propagation a ``fiber.prepare``
+    span inside it (:func:`utils.profiling.span`).
     """
+    with span("fiber", kind="staged", method=method) as sp:
+        fused = ssfm.fused_steps()
+        output = _fiber(input, length, alpha, beta_2, beta_3, gamma, phi_max,
+                        h, show_progress, return_steps, method, tol, mesh,
+                        shard_method)
+        if isinstance(output, OpticalSignal):
+            sp.set(steps=output.n_steps, fused=ssfm.fused_steps() > fused)
+        return output
+
+
+def _fiber(input, length, alpha, beta_2, beta_3, gamma, phi_max, h,
+           show_progress, return_steps, method, tol, mesh, shard_method):
+    """:func:`FIBER`'s work."""
     tic()
     if not isinstance(input, OpticalSignal):
         raise TypeError("`input` must be of type 'optical_signal'.")
@@ -511,7 +585,7 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
                          "method='reference'.")
 
     A = input._total()
-    w = input.w()
+    w = _w_on(A)
     common = dict(alpha=float(alpha), beta_2=float(beta_2),
                   beta_3=float(beta_3), gamma=float(gamma))
     if method == "o4":
@@ -543,6 +617,15 @@ def FIBER(input: OpticalSignal, length: float, alpha: float = 0.0,
     return output
 
 
+def _w_on(A: torch.Tensor) -> torch.Tensor:
+    """``OpticalSignal.w()`` of a field ``A``, ``2*pi*fftfreq(n, gv.dt)`` in
+    float64, computed on ``A``'s device: NumPy's operations in its order,
+    so the same numbers."""
+    w = torch.fft.fftfreq(A.shape[-1], gv.dt, dtype=torch.float64,
+                          device=A.device)
+    return w * 2 * np.pi
+
+
 def DBP(input: OpticalSignal, length: float, alpha: float = 0.0,
         beta_2: float = 0.0, beta_3: float = 0.0, gamma: float = 0.0,
         phi_max: float = 0.01, h: Optional[float] = None,
@@ -559,6 +642,7 @@ def DBP(input: OpticalSignal, length: float, alpha: float = 0.0,
 # ---------------------------------------------------------------------------
 # LPF (reference devices.py:1286-1375)
 # ---------------------------------------------------------------------------
+@spanned("rx.pd", device="LPF")
 def LPF(input, BW: float, n: int = 4, fs: Optional[float] = None,
         retH: bool = False):
     """Electrical low-pass: n-th order Bessel, zero-phase, real output
@@ -591,16 +675,20 @@ def LPF(input, BW: float, n: int = 4, fs: Optional[float] = None,
 # ---------------------------------------------------------------------------
 # PD (reference devices.py:1378-1555)
 # ---------------------------------------------------------------------------
+@spanned("rx.pd", device="PD")
 def PD(input: OpticalSignal, BW: float, r: float = 1.0, T: float = 300.0,
        R_load: float = 50.0, include_noise: str = "all",
-       i_dark: float = 10e-9, Fn: float = 0, key=None) -> ElectricalSignal:
+       i_dark: float = 10e-9, Fn: float = 0, key=None,
+       noise: Optional[dict] = None) -> ElectricalSignal:
     """PIN photodetector (reference devices.py:1378-1555): ``i = r*|E|^2``
     summed over polarizations, the signal-ASE and ASE-ASE beats falling out
     of the signal/noise algebra; thermal ``4*kB*T*Fn*Df/R_L`` and shot
     ``2*e*(i_mean + i_dark)*Df`` noise drawn as Gaussians, thermal first;
     the voltage ``i*R_load`` low-pass filtered to ``BW``.  ``include_noise``
     picks the terms ('ase-only', ..., 'all', 'none'); ``key`` as for
-    :func:`LASER`."""
+    :func:`LASER`; ``noise``: the unit normal draws to use instead,
+    ``{"thermal": (n,), "shot": (n,)}`` (each needed only where its term
+    is included)."""
     tic()
     if not isinstance(input, OpticalSignal):
         raise TypeError("`input` must be of type 'optical_signal'.")
@@ -633,19 +721,25 @@ def PD(input: OpticalSignal, BW: float, r: float = 1.0, T: float = 300.0,
             "'thermal-shot','all', 'none'.")
 
     dev = input.device
-    gen = rng.resolve(key, dev)
+    gen = _noise_source(key, noise, dev)
 
     i_T = i_N = None
     if "thermal" in include_noise or include_noise == "all":
         S_T = 4 * kB * T * gv.fs / 2 * idb(Fn) / R_load
-        if gen is not None:
+        if noise is not None:
+            i_T = noise_ops.gaussian((input.size,), S_T**0.5, None,
+                                     _injected(noise, "thermal", dev))
+        elif gen is not None:
             i_T = noise_ops.gaussian((input.size,), S_T**0.5, gen)
         else:
             i_T = _legacy_normal(S_T**0.5, input.size, dev)
     if "shot" in include_noise or include_noise == "all":
         mean_i = float(i_ph._total().to(torch.float64).mean())
         S_N = 2 * e * (mean_i + i_dark) * gv.fs / 2
-        if gen is not None:
+        if noise is not None:
+            i_N = noise_ops.gaussian((input.size,), S_N**0.5, None,
+                                     _injected(noise, "shot", dev))
+        elif gen is not None:
             i_N = noise_ops.gaussian((input.size,), S_N**0.5, gen)
         else:
             i_N = _legacy_normal(S_N**0.5, input.size, dev)
@@ -698,6 +792,7 @@ def _shortest_int(x: torch.Tensor, percent: float):
     return x[i], x[i + lag]
 
 
+@spanned("rx.pd", device="ADC")
 def ADC(input, fs: Optional[float] = None, n: int = 8,
         otype: str = "v") -> ElectricalSignal:
     """Analog-to-digital converter (reference devices.py:1558-1632):
@@ -740,21 +835,40 @@ _EYE_NAN_TO_NONE = ("threshold", "y_left", "y_right")
 
 def _eye_on_host(metrics: dict) -> dict:
     """The tensor engine's result as the host engine gives it: the scalars
-    as Python numbers (one read-back for all), NaN as None where the host
-    engine says None, the traces as NumPy arrays."""
+    as Python numbers, NaN as None where the host engine says None, the
+    traces as NumPy arrays.  One read-back for all: from a card every
+    tensor is copied into page-locked host memory, which the traces'
+    arrays then hold (PyTorch's caching host allocator takes it back when
+    they go), and the stream is waited on once."""
     scalars = [k for k, v in metrics.items()
                if isinstance(v, torch.Tensor) and v.ndim == 0]
-    values = torch.stack([metrics[k].to(torch.float64)
-                          for k in scalars]).tolist()
-    for k, v in zip(scalars, values):
+    arrays = [k for k, v in metrics.items()
+              if isinstance(v, torch.Tensor) and v.ndim > 0]
+    values, *host = _on_host(
+        [torch.stack([metrics[k].to(torch.float64) for k in scalars])]
+        + [metrics[k] for k in arrays])
+    for k, v in zip(scalars, values.tolist()):
         metrics[k] = int(v) if k == "i" else v
-    for k, v in metrics.items():
-        if isinstance(v, torch.Tensor):
-            metrics[k] = v.cpu().numpy()
+    for k, v in zip(arrays, host):
+        metrics[k] = v.numpy()
     for k in _EYE_NAN_TO_NONE:
         if metrics.get(k) is not None and np.isnan(metrics[k]):
             metrics[k] = None
     return metrics
+
+
+def _on_host(tensors: list) -> list:
+    """Host copies of ``tensors`` (of one device): from a card, queued into
+    page-locked memory and waited on once."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.cpu() for t in tensors]
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.append(h.copy_(t, non_blocking=True))
+    torch.cuda.current_stream(dev).synchronize()
+    return out
 
 
 def GET_EYE(input, nslots: int = 4096,
@@ -766,35 +880,45 @@ def GET_EYE(input, nslots: int = 4096,
     (:func:`ops.eyeana.eye_metrics_host`) on a host copy in float64;
     ``"auto"`` and ``"device"`` run the tensor pipeline of
     :func:`ops.eyeana.eye_metrics`, the port of the JAX package's device
-    twin (``eye_metrics_jax``), on the signal's device.  Level means and
-    spreads (``mu0/mu1/s0/s1``), crossing times (``t_left/t_right/t_opt``),
-    ``er``, ``eye_h``, the KDE ``threshold`` and the sampling instant ``i``
-    come back as Python numbers, the rendering traces as NumPy arrays."""
-    tic()
-    if isinstance(input, np.ndarray) and input.ndim > 2:
-        raise ValueError("The input must be a 1D or 2D array.")
-    if not isinstance(input, ElectricalSignal):
-        input = ElectricalSignal(input)
+    twin (``eye_metrics_jax``), on the signal's device; on a card, from a
+    shape's third call, as one CUDA graph replay of the same kernels
+    (:func:`ops.eyeana.eye_scalars` with its traces), so the same bits.
+    Level means and spreads (``mu0/mu1/s0/s1``), crossing times
+    (``t_left/t_right/t_opt``), ``er``, ``eye_h``, the KDE ``threshold``
+    and the sampling instant ``i`` come back as Python numbers, the
+    rendering traces as NumPy arrays.  The call is an ``rx.eye`` span
+    (``graph``: ``"eager"``, ``"capture"`` or ``"replay"``, or ``"host"``
+    for the host engine)."""
+    with span("rx.eye") as sp:
+        tic()
+        if isinstance(input, np.ndarray) and input.ndim > 2:
+            raise ValueError("The input must be a 1D or 2D array.")
+        if not isinstance(input, ElectricalSignal):
+            input = ElectricalSignal(input)
 
-    samples = input._total()
-    samples = samples.real if samples.is_complex() else samples
-    if samples.ndim == 2:
-        samples = samples.sum(dim=0)
-    if engine == "host":
-        metrics = eyeana.eye_metrics_host(samples, sps=input.sps,
-                                          nslots=nslots,
-                                          sps_resamp=sps_resamp)
-    else:
-        metrics = _eye_on_host(eyeana.eye_metrics(
-            samples, sps=input.sps, nslots=nslots, sps_resamp=sps_resamp))
-    metrics["dt"] = input.dt
-    metrics["execution_time"] = toc()
-    return Eye(metrics)
+        samples = input._total()
+        samples = samples.real if samples.is_complex() else samples
+        if samples.ndim == 2:
+            samples = samples.sum(dim=0)
+        if engine == "host":
+            metrics = eyeana.eye_metrics_host(samples, sps=input.sps,
+                                              nslots=nslots,
+                                              sps_resamp=sps_resamp)
+            sp.set(graph="host")
+        else:
+            e = eyeana.eye_scalars(samples, sps=input.sps, nslots=nslots,
+                                   sps_resamp=sps_resamp, traces=True)
+            metrics = _eye_on_host(e.m)
+            sp.set(graph=e.how)
+        metrics["dt"] = input.dt
+        metrics["execution_time"] = toc()
+        return Eye(metrics)
 
 
 # ---------------------------------------------------------------------------
 # SAMPLER (reference devices.py:1871-1891)
 # ---------------------------------------------------------------------------
+@spanned("rx.decide", step="sampler")
 def SAMPLER(input: ElectricalSignal, instant: int) -> ElectricalSignal:
     """Downsample to 1 sample/slot: ``input[instant::gv.sps]`` (reference
     devices.py:1871-1891)."""

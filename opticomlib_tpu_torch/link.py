@@ -66,8 +66,8 @@ from .eyediag import Eye
 from .ops import filters, kernels, pulses, ssfm
 from .models.ppm import (PPM_ENCODER, hdd_positions, positions_to_bits,
                          sdd_positions)
-from .ops.eyeana import (_at, _shortest_int_masked, eye_metrics, eye_scalars,
-                         eye_window, linspace)
+from .ops.eyeana import (TRACE_KEYS, _at, _shortest_int_masked,
+                         eye_metrics, eye_scalars, eye_window, linspace)
 from .ops.eyeana import pack_rows as _pack_rows
 from .ops.eyeana import unpack_rows as _unpack_rows
 from .ops.noise import as_draw, ase_sigma, gaussian, wiener_phase
@@ -80,7 +80,6 @@ from .utils.profiling import span
 __all__ = ["FiberSpec", "DBPSpec", "EDFASpec", "DMSpec", "BPFSpec",
            "RepeatSpec", "LinkSpec", "LinkProgram", "build_link"]
 
-_EYE_TRACE_KEYS = ("y", "t", "y_top", "y_bot", "y_25_75")
 f32 = np.float32
 
 
@@ -372,12 +371,6 @@ def _stage_plan(stages, f0: float, fs: float, *, fiber_extra, dm_const,
     return [one(s) for s in stages]
 
 
-def _fused_steps() -> int:
-    """Fiber steps so far that took the card's fused kernels: the
-    adaptive loop's and the o4 scan's (``fiber`` span's ``fused``)."""
-    return ssfm.STEP_COUNTS["fused"] + ssfm.O4_COUNTS["fused"]
-
-
 def _promote_2pol(f: torch.Tensor, lead: int) -> torch.Tensor:
     """A 1-pol field ``(..., n)`` with ``lead`` leading channel axes as the
     first row of a 2-pol field ``(..., 2, n)``."""
@@ -471,7 +464,7 @@ def _eye_to_host(m: dict, dt: float, host: dict) -> Eye:
     (:func:`_read_back`)."""
     res = {}
     for k, val in m.items():
-        if isinstance(val, torch.Tensor) and k not in _EYE_TRACE_KEYS:
+        if isinstance(val, torch.Tensor) and k not in TRACE_KEYS:
             val = host[k].item() if host[k].ndim == 0 else host[k]
         res[k] = val
     for k in ("threshold", "y_left", "y_right"):
@@ -757,9 +750,9 @@ class _LinkChain(torch.nn.Module):
         if cc["kind"] == "fiber":
             with span("fiber", kind="dbp" if cc["sgn"] < 0 else "fiber",
                       method=cc["method"]) as sp:
-                fused = _fused_steps()
+                fused = ssfm.fused_steps()
                 f, steps = self._fiber(f, st, cc, neg_phi)
-                sp.set(steps=steps, fused=_fused_steps() > fused)
+                sp.set(steps=steps, fused=ssfm.fused_steps() > fused)
             n_steps.append(steps)
             return f
         with span("stage", kind=cc["kind"]):
@@ -1076,7 +1069,7 @@ class LinkProgram(_LinkChain):
             m = eye_metrics(out[0], self.params.sps, nslots, sps_resamp)
             host = _read_back(rin_ok=out[-1], **{
                 k: v for k, v in m.items() if isinstance(v, torch.Tensor)
-                and k not in _EYE_TRACE_KEYS})
+                and k not in TRACE_KEYS})
         else:
             e = eye_scalars(out[0], self.params.sps, nslots, sps_resamp)
             m, host = e.m, _read_back(e, rin_ok=out[-1])

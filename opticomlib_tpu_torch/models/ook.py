@@ -2,7 +2,9 @@
 ``opticomlib_tpu.models.ook``; parity with reference opticomlib/ook.py,
 file:line cited per function).  The eye metrology runs on the signal's
 device; the threshold scan and the BER count run on the host, as in the
-JAX package."""
+JAX package.  :func:`THRESHOLD_EST`, the slicer of :func:`DSP` and
+:func:`BER_analizer` are ``rx.decide`` spans (attribute ``step``;
+:mod:`opticomlib_tpu_torch.utils.profiling`, off by default)."""
 from __future__ import annotations
 
 from typing import Literal
@@ -14,10 +16,12 @@ from ..eyediag import Eye
 from ..params import gv
 from ..signals import BinarySequence, ElectricalSignal
 from ..utils.analysis import Q, tic, toc
+from ..utils.profiling import span, spanned
 
 __all__ = ["THRESHOLD_EST", "DSP", "BER_analizer", "theory_BER"]
 
 
+@spanned("rx.decide", step="threshold")
 def THRESHOLD_EST(eye_obj: Eye) -> float:
     """Optimal OOK decision threshold from eye statistics: argmin of
     ``0.5*[Q((mu1-r)/s1) + Q((r-mu0)/s0)]`` over 1000 candidate levels
@@ -38,11 +42,13 @@ def DSP(input: ElectricalSignal, BW: float = None):
     rth = THRESHOLD_EST(eye_obj)
 
     x = SAMPLER(x, gv.sps // 2)  # one sample per bit
-    output = x > rth  # a host BinarySequence
+    with span("rx.decide", step="slicer"):
+        output = x > rth  # a host BinarySequence
     output.execution_time = toc()
     return output, eye_obj, rth
 
 
+@spanned("rx.decide", step="ber")
 def BER_analizer(mode: Literal["counter", "estimator"], **kargs) -> float:
     """BER by error counting (Tx vs Rx) or estimation from eye statistics
     (reference ook.py:135-218)."""

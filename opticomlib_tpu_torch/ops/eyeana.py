@@ -18,9 +18,10 @@ on a Python number, and the time axis is made once a shape
 (:func:`_time_grid`), so the whole receiver queues behind the link on the
 card.
 
-:func:`eye_scalars`, the metrology without its traces, replays it on a CUDA
-input as one CUDA graph a shape (:data:`GRAPH_COUNTS`): the same kernels
-in the same order as the eager call, so the same bits.
+:func:`eye_scalars`, the metrology without its traces (or with them,
+``traces=True``), replays it on a CUDA input as one CUDA graph a shape
+(:data:`GRAPH_COUNTS`): the same kernels in the same order as the eager
+call, so the same bits.
 
 A ``(C, n)`` input is ``C`` independent channels (the JAX package's ``vmap``
 over ``eye_metrics_jax``): stages 1-6 run channel by channel on the rows, so
@@ -54,6 +55,9 @@ PLATEAU_TOL = 1e-3
 _TINY = float(np.finfo(np.float32).tiny)
 #: bins of the KDE threshold's histogram
 _KDE_BINS = 4096
+#: the rendering traces of :func:`eye_metrics`' result; the rest are scalars
+#: (and the ``(2,)`` level intervals)
+TRACE_KEYS = ("y", "t", "y_top", "y_bot", "y_25_75")
 
 
 def _at(vals: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -504,19 +508,24 @@ def unpack_rows(host: np.ndarray, layout) -> dict:
 
 
 def _scalar_rows(win: torch.Tensor, sps: int, nslots: int,
-                 sps_resamp: Optional[int]) -> tuple:
-    """Stages 1-8 on the rows of the eye window ``win``, no traces:
-    ``(m, rows, layout)`` of :class:`EyeScalars`."""
-    m = _stacked(_eye_rows(win, sps, nslots, sps_resamp, traces=False))
+                 sps_resamp: Optional[int], traces: bool = False) -> tuple:
+    """Stages 1-8 on the rows of the eye window ``win``, the traces only
+    with ``traces``: ``(m, rows, layout)`` of :class:`EyeScalars` (the
+    traces are not packed)."""
+    m = _stacked(_eye_rows(win, sps, nslots, sps_resamp, traces=traces))
     rows, layout = pack_rows({k: v for k, v in m.items()
-                              if isinstance(v, torch.Tensor)})
+                              if isinstance(v, torch.Tensor)
+                              and k not in TRACE_KEYS})
     return m, rows, layout
 
 
 def eye_scalars(samples: torch.Tensor, sps: int, nslots: int = 4096,
-                sps_resamp: Optional[int] = None) -> EyeScalars:
+                sps_resamp: Optional[int] = None,
+                traces: bool = False) -> EyeScalars:
     """:func:`eye_metrics` without its traces: the same scalars, bit for
     bit, as tensors and packed in float64 rows (:class:`EyeScalars`).
+    ``traces=True``: ``m`` holds :func:`eye_metrics`' traces too, from the
+    same graph (they are not in the packed rows).
 
     On a CUDA input that no one is capturing, the metrology of each input
     shape (device, rows, window, dtype, ``sps``, ``nslots``,
@@ -532,9 +541,10 @@ def eye_scalars(samples: torch.Tensor, sps: int, nslots: int = 4096,
     win = rows[:, :eye_window(int(rows.shape[1]), sps, nslots)]
     graph, how = None, "eager"
     if win.is_cuda and not torch.cuda.is_current_stream_capturing():
-        graph, how = _graph_for(win, sps, nslots, sps_resamp)
+        graph, how = _graph_for(win, sps, nslots, sps_resamp, traces)
     if graph is None:
-        m, packed, layout = _scalar_rows(win, sps, nslots, sps_resamp)
+        m, packed, layout = _scalar_rows(win, sps, nslots, sps_resamp,
+                                         traces)
     else:
         graph.static_in.copy_(win)
         graph.graph.replay()
@@ -549,12 +559,13 @@ def eye_scalars(samples: torch.Tensor, sps: int, nslots: int = 4096,
 
 
 def _graph_for(win: torch.Tensor, sps: int, nslots: int,
-               sps_resamp: Optional[int]) -> tuple:
-    """The graph of ``win``'s shape and how this call uses it: ``(None,
-    "eager")`` on the shape's first call and for a shape whose capture
-    raised, ``(graph, "capture")`` on its second, ``(graph, "replay")``
-    after."""
-    key = (win.device, tuple(win.shape), win.dtype, sps, nslots, sps_resamp)
+               sps_resamp: Optional[int], traces: bool) -> tuple:
+    """The graph of ``win``'s shape (with or without the traces) and how
+    this call uses it: ``(None, "eager")`` on the shape's first call and
+    for a shape whose capture raised, ``(graph, "capture")`` on its second,
+    ``(graph, "replay")`` after."""
+    key = (win.device, tuple(win.shape), win.dtype, sps, nslots, sps_resamp,
+           traces)
     if key in _no_graph:
         return None, "eager"
     entry = _graphs.get(key)
@@ -567,7 +578,8 @@ def _graph_for(win: torch.Tensor, sps: int, nslots: int,
     if entry is not _SEEN:
         return entry, "replay"
     try:
-        entry = _graphs[key] = _capture(win, sps, nslots, sps_resamp)
+        entry = _graphs[key] = _capture(win, sps, nslots, sps_resamp,
+                                        traces)
     except Exception as exc:  # noqa: BLE001 - whatever refused the capture
         del _graphs[key]
         _no_graph.add(key)
@@ -579,7 +591,7 @@ def _graph_for(win: torch.Tensor, sps: int, nslots: int,
 
 
 def _capture(win: torch.Tensor, sps: int, nslots: int,
-             sps_resamp: Optional[int]) -> _Graph:
+             sps_resamp: Optional[int], traces: bool) -> _Graph:
     """Capture :func:`_scalar_rows` on an input of ``win``'s shape, on a
     side stream of ``win``'s device, into a graph of its own pool.  Nothing
     runs; the caller replays it.  What the graph reads outside its pool
@@ -599,7 +611,8 @@ def _capture(win: torch.Tensor, sps: int, nslots: int,
         with torch.no_grad(), torch.cuda.stream(stream):
             graph.capture_begin()
             try:
-                out = _scalar_rows(static_in, sps, nslots, sps_resamp)
+                out = _scalar_rows(static_in, sps, nslots, sps_resamp,
+                                   traces)
             except BaseException:
                 try:
                     graph.capture_end()

@@ -55,12 +55,22 @@ def apply_freq_response(x: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     return y if x.is_complex() else y.real
 
 
+@lru_cache(maxsize=4)
+def _device_response(n: int, BW: float, fs: float, nfft: int,
+                     device: torch.device) -> torch.Tensor:
+    """:func:`bessel_filtfilt_response` as float64 on ``device``, copied
+    once for each design and length."""
+    H2 = bessel_filtfilt_response(n, BW, fs, nfft).astype(np.float64)
+    return torch.as_tensor(H2, device=device)
+
+
 def bessel_lpf(x: torch.Tensor, BW: float, fs: float,
                n: int = 4) -> torch.Tensor:
     """Zero-phase Bessel low-pass of the last axis of ``x`` (the operator of
     the reference's ``sg.sosfiltfilt(sg.bessel(n, BW, norm='mag'), x)``,
     devices.py:1363-1368, up to boundary handling).  The response is
-    float64 on the host, as the JAX package's NumPy path applies it."""
-    H2 = bessel_filtfilt_response(n, float(BW), float(fs),
-                                  int(x.shape[-1])).astype(np.float64)
-    return apply_freq_response(x, torch.as_tensor(H2, device=x.device))
+    applied in float64, as the JAX package's NumPy path applies it; it is
+    kept on ``x``'s device for the next call of the same design and
+    length."""
+    return apply_freq_response(x, _device_response(
+        n, float(BW), float(fs), int(x.shape[-1]), x.device))

@@ -108,11 +108,13 @@ def ase_sigma(G_dB: float, NF_dB: float, f0: float, fs: float) -> float:
     return float(np.sqrt(ase_power(G_dB, NF_dB, f0, fs) / 4.0))
 
 
-def ase_draws(n: int, P_ase: float,
-              generator: torch.Generator) -> torch.Tensor:
+def ase_draws(n: int, P_ase: float, generator: torch.Generator,
+              draw: torch.Tensor = None) -> torch.Tensor:
     """EDFA ASE field noise on the generator's device: a (2, n) complex128
     tensor, 2 polarizations x (re, im) quadratures of ``N(0, P_ase/4)``
     each, drawn in float32 (port of ``opticomlib_tpu.ops.noise.ase_draws``;
-    reference devices.py:930-936)."""
-    d = gaussian((4, n), np.sqrt(P_ase / 4), generator).to(torch.float64)
+    reference devices.py:930-936).  ``draw``: ``(4, n)`` unit normals to
+    use instead of the generator's."""
+    d = gaussian((4, n), np.sqrt(P_ase / 4), generator,
+                 draw).to(torch.float64)
     return torch.complex(d[:2], d[2:])

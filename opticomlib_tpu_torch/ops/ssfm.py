@@ -87,6 +87,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import kernels
 
 __all__ = ["linear_operator", "dispersion_phase", "alpha_per_km",
@@ -109,6 +110,12 @@ STEP_COUNTS = {"fused": 0, "composed": 0}
 #: (the card's chain, one ``strang_kicks`` pass between transforms) or
 #: ``composed``
 O4_COUNTS = {"fused": 0, "composed": 0}
+
+
+def fused_steps() -> int:
+    """Fiber steps so far that took the card's fused kernels: the
+    adaptive loop's and the o4 scan's (a ``fiber`` span's ``fused``)."""
+    return STEP_COUNTS["fused"] + O4_COUNTS["fused"]
 
 
 # ----------------------------------------------------------------------
@@ -166,10 +173,17 @@ def linear_operator(w_rad_s: np.ndarray, alpha_db_km: float, beta2: float,
     return D.astype(np.complex64)
 
 
-def dispersion_phase(w_rad_s: np.ndarray, beta2: float,
-                     beta3: float) -> np.ndarray:
+def dispersion_phase(w_rad_s, beta2: float, beta3: float):
     """Real dispersion phase rate ``phi(w) = beta2/2*w^2 + beta3/6*w^3``
-    [rad/km], w in rad/ps, natural FFT order (float32)."""
+    [rad/km], w in rad/ps, natural FFT order (float32).  A NumPy ``w_rad_s``
+    gives a NumPy array; a tensor gives a tensor on its device, from the
+    same float64 operations (the same numbers where ``beta3 == 0``; else
+    ``w**3``, ``w*w*w`` in torch and ``pow`` in NumPy, may differ in its
+    last float64 bit)."""
+    if isinstance(w_rad_s, torch.Tensor):
+        w = w_rad_s.to(torch.float64) * 1e-12  # rad/ps
+        phi = (w**2).mul_(beta2 / 2).add_((w**3).mul_(beta3 / 6))
+        return phi.to(torch.float32)
     w = np.asarray(w_rad_s, dtype=np.float64) * 1e-12  # rad/ps
     phi = beta2 / 2 * w**2 + beta3 / 6 * w**3
     return phi.astype(np.float32)
@@ -565,9 +579,13 @@ def dispersive_step(A: torch.Tensor, D, h) -> torch.Tensor:
 
 
 def _prepare(A: torch.Tensor, w_rad_s, beta_2, beta_3):
-    A = A.to(torch.complex64).contiguous()
-    phi_w = torch.as_tensor(dispersion_phase(w_rad_s, beta_2, beta_3),
-                            device=A.device)
+    """The staged wrappers' field (complex64, contiguous) and dispersion
+    phase on ``A``'s device (computed there when ``w_rad_s`` is a tensor on
+    it), inside a ``fiber.prepare`` span."""
+    with span("fiber.prepare"):
+        A = A.to(torch.complex64).contiguous()
+        phi_w = torch.as_tensor(dispersion_phase(w_rad_s, beta_2, beta_3),
+                                device=A.device)
     return A, phi_w
 
 

@@ -2,8 +2,8 @@
 trace of a block through ``torch.profiler``, named regions in it, a wall
 timer that synchronises the device at both ends, the wall / busy / idle
 bookkeeping of a profiled call, and spans: a recorder, off by default, of
-where on the host the program is (:func:`span`, :func:`record`,
-:func:`drain`).
+where on the host the program is (:func:`span`, :func:`spanned`,
+:func:`record`, :func:`drain`).
 
 The reference brackets every device with wall-clock ``tic``/``toc``
 (reference utils.py:293-340), which this package keeps as
@@ -13,6 +13,7 @@ so a time that means the device's work needs one of these.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import os
 import threading
@@ -142,6 +143,19 @@ def span(name: str, **attrs):
     if _records is None:
         return _NO_SPAN
     return _Span(name, attrs)
+
+
+def spanned(name: str, **attrs):
+    """A decorator: each call of the function runs inside ``span(name,
+    **attrs)`` (one shared object that does nothing while recording is
+    off)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inside(*args, **kwargs):
+            with span(name, **attrs):
+                return fn(*args, **kwargs)
+        return inside
+    return wrap
 
 
 def record(on: bool) -> None:

@@ -605,6 +605,87 @@ def test_staged_chain_on_card_matches_cpu(cuda_device):
     assert kernels.LAUNCHES["nl_halfstep"] >= sg
 
 
+def test_staged_injected_draws_and_fiber_span_on_card(cuda_device):
+    """On the card: ``PD``, ``LASER`` and ``EDFA`` on injected draws equal
+    their keyed draws (the same CUDA generator's), and the staged
+    ``FIBER``'s span says that its steps took the fused kernels."""
+    from opticomlib_tpu_torch.utils import profiling
+    gv.default()
+    gv(sps=64, R=10e9, Vpi=5, N=2**12, device="cuda")
+    n = 2**12 * 64
+
+    def randn(*shapes):
+        g = torch.Generator(device=cuda_device).manual_seed(11)
+        return [torch.randn(s, generator=g, device=cuda_device)
+                for s in shapes]
+    v = devices.DAC(prbs(15, length=2**12)[0], Vpp=5, offset=-2.5,
+                    pulse_shape="gaussian")
+    E = devices.MZM(devices.LASER(P0=5), v, bias=-2.5, Vpi=5, loss_dB=3,
+                    ER_dB=26)
+    th, sh = randn((n,), (n,))
+    assert torch.equal(
+        devices.PD(E, BW=7.5e9, key=11)._total(),
+        devices.PD(E, BW=7.5e9, noise={"thermal": th, "shot": sh})._total())
+    ph, ri = randn((n,), (n,))
+    assert torch.equal(
+        devices.LASER(P0=3, lw=1e6, rin=-150, key=11).signal,
+        devices.LASER(P0=3, lw=1e6, rin=-150,
+                      noise={"phase": ph, "rin": ri}).signal)
+    (ase,) = randn((4, n))
+    assert torch.equal(devices.EDFA(E, G=20, NF=5, key=11).noise,
+                       devices.EDFA(E, G=20, NF=5, noise={"ase": ase}).noise)
+    profiling.record(True)
+    try:
+        fib = devices.FIBER(E, length=50, alpha=0.2, beta_2=-20, gamma=2)
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+        gv.default()
+    (sp,) = [r for r in recs if r["name"] == "fiber"]
+    assert sp["attrs"] == {"kind": "staged", "method": "reference",
+                           "steps": fib.n_steps, "fused": True}
+
+
+def test_staged_fiber_constants_on_card_equal_the_hosts(cuda_device):
+    """On the card at 2^24: ``FIBER``'s frequency axis and, for beta_3 = 0,
+    its dispersion phase are the host's bits (beta_3 != 0: within a
+    float32 ulp); the low-pass's cached response gives the host copy's
+    output; a staged ``FIBER`` equals ``ssfm_propagate`` on the host's
+    axis."""
+    from opticomlib_tpu_torch.ops import filters, ssfm
+    from opticomlib_tpu_torch.signals import OpticalSignal
+    gv.default()
+    gv(sps=64, R=10e9, Vpi=5, N=2**18, device="cuda")
+    try:
+        A = torch.zeros(2**24, dtype=torch.complex64, device=cuda_device)
+        w_host, w = OpticalSignal(A).w(), devices._w_on(A)
+        assert np.array_equal(w.cpu().numpy().view(np.uint64),
+                              w_host.view(np.uint64))
+        got = ssfm.dispersion_phase(w, -20.0, 0.0).cpu().numpy()
+        want = ssfm.dispersion_phase(w_host, -20.0, 0.0)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        got = ssfm.dispersion_phase(w, -21.0, 0.1).cpu().numpy()
+        want = ssfm.dispersion_phase(w_host, -21.0, 0.1)
+        assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
+        del A, w
+        x = torch.randn(2**24, dtype=torch.float64, device=cuda_device)
+        H2 = filters.bessel_filtfilt_response(4, 7.5e9, gv.fs, 2**24)
+        ref = filters.apply_freq_response(x, torch.as_tensor(
+            H2.astype(np.float64), device=cuda_device))
+        assert torch.equal(filters.bessel_lpf(x, 7.5e9, gv.fs), ref)
+        del x, ref
+        gv(sps=64, R=10e9, Vpi=5, N=2**12, device="cuda")
+        v = devices.DAC(prbs(15, length=2**12)[0], Vpp=5, offset=-2.5)
+        E = devices.MZM(devices.LASER(P0=5), v, bias=-2.5, Vpi=5,
+                        loss_dB=3, ER_dB=26)
+        fib = devices.FIBER(E, length=50, alpha=0.2, beta_2=-20, gamma=2)
+        B, steps = ssfm.ssfm_propagate(E._total(), E.w(), 50.0, alpha=0.2,
+                                       beta_2=-20.0, gamma=2.0)
+        assert fib.n_steps == steps and torch.equal(fib.signal, B)
+    finally:
+        gv.default()
+
+
 # ---------------------------------------------------------------------------
 # the resumable and the sharded fiber, and the profiling hooks, on the card
 # ---------------------------------------------------------------------------
@@ -1091,6 +1172,60 @@ def test_eye_graph_replays_bit_equal_to_eager(cuda_device, fresh_graphs,
     for g in (got[1], got[2], got[4]):
         assert _same(g, got[0])
     assert _same(got[3], want2) and not _same(got[3], got[0])
+
+
+def _eye_fields_equal(a, b) -> bool:
+    """Every field of two ``Eye`` objects equal, NaN to NaN, but the wall
+    time."""
+    if a.__dict__.keys() != b.__dict__.keys():
+        return False
+    for k, u in a.__dict__.items():
+        v = b.__dict__[k]
+        if k == "execution_time":
+            continue
+        if isinstance(u, np.ndarray):
+            if not np.array_equal(u, v, equal_nan=True):
+                return False
+        elif not (u == v or (u is None and v is None)
+                  or (isinstance(u, float) and np.isnan(u) and np.isnan(v))):
+            return False
+    return True
+
+
+def test_staged_eye_replays_bit_equal_to_eager(cuda_device, fresh_graphs):
+    """``GET_EYE`` at the staged cell's eye shape (8192 slots at sps 64,
+    resampled to 128): the first call runs eagerly, the second captures,
+    the rest replay; every scalar and trace of a capture's and a replay's
+    ``Eye`` equals the eager one, and a replay on a new input gives that
+    input's eager ``Eye``; the page-locked read-back gives the values
+    ``eye_metrics`` reads back plainly."""
+    from opticomlib_tpu_torch.signals import ElectricalSignal
+    gv.default()
+    gv(sps=64, R=10e9, N=2**13, device="cuda")
+    try:
+        x, x2 = (ElectricalSignal(
+            _eye_input(1, 2**19, 64, cuda_device, s)[0].double())
+            for s in (1, 2))
+        eyes = [devices.GET_EYE(inp, nslots=8192, sps_resamp=128)
+                for inp in (x, x, x, x2)]
+        plain = fresh_graphs.eye_metrics(x._total(), 64, 8192, 128)
+        assert fresh_graphs.GRAPH_COUNTS == dict(captured=1, replayed=2,
+                                                 eager=1)
+        fresh_graphs._graphs.clear()
+        fresh_graphs.GRAPH_COUNTS["eager"] = 0
+        eager2 = devices.GET_EYE(x2, nslots=8192, sps_resamp=128)
+        assert fresh_graphs.GRAPH_COUNTS["eager"] == 1
+    finally:
+        gv.default()
+    assert eyes[0].y.shape == (2**20,)
+    for k in ("y", "y_top", "top_int"):      # the page-locked read-back
+        assert np.array_equal(getattr(eyes[0], k), plain[k].cpu().numpy(),
+                              equal_nan=True)
+    assert eyes[0].mu1 == float(plain["mu1"])
+    for e in eyes[1:3]:
+        assert _eye_fields_equal(e, eyes[0])
+    assert _eye_fields_equal(eyes[3], eager2)
+    assert not _eye_fields_equal(eyes[3], eyes[0])
 
 
 def test_dsp_receiver_replays_its_eye_and_reads_back_once(
