@@ -56,6 +56,13 @@ It checks them in phases, one line each; any failure exits non-zero:
    beside it and, where one PyTorch call computes the same function,
    beside that call, and the fused kernels beside the composed passes they
    replace (median of 20 runs, CUDA events);
+2.1 the pencil FFT's local passes (``pencil_dft``: the rank-axis DFT with
+   and without its twiddle; ``pencil_twiddle_pack``) agree with their plain
+   versions (the einsum, ``cmul_ref`` and the packs) at P = 1, 2, 3, 4 and
+   8: the twiddle-and-pack bit for bit, the DFT within a few ulps of the
+   einsum and no farther than it from a float64 DFT; each is timed at the
+   four-card cell's (2, 8, 2^22) beside its bound, its plain version and the
+   composed steps it replaces;
 3. config 2 at 2^20 samples runs on the card and on the CPU on the same
    numpy noise draws, and the two agree;
 4. config 2 at full size runs once through the kernels (launch counters)
@@ -374,6 +381,9 @@ REPLACES = {
                    "opticomlib_tpu/ops/pallas_kernels.py:168"),
     "fbg_rk4": ("cuda", "opticomlib_tpu_torch/ops/csrc/fbg_rk4.cu",
                 "opticomlib_tpu/devices.py:1127 (_fbg_rk4, lax.scan)"),
+    "pencil": ("cuda", "opticomlib_tpu_torch/ops/csrc/pencil.cu",
+               "none: the pencil FFT's rank-axis DFT (an einsum), its "
+               "twiddles and packs (XLA fused them)"),
 }
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 3.35 TB/s; float32
@@ -1553,6 +1563,147 @@ def bench(torch, kernels, card: str):
     return launches, err
 
 
+#: the pencil passes' check cases of phase 2.1: (P, lead, C, offset in
+#: samples); the four-card cell's (2, 8, 2^22) first, then the same 2^26
+#: samples at P = 1 and 4, then small fields on every path of the launchers
+#: (C odd and even, views 8 bytes off, the any-P kernel at P = 3 and 8)
+PENCIL_CASES = ((2, (8,), 2**22, 0), (1, (8,), 2**23, 0), (4, (8,), 2**21, 0),
+                *((P, (3, 2), C, off) for P in (1, 2, 3, 4, 8)
+                  for C in (1003, 1004) for off in (0, 1)))
+
+
+#: the pencil passes' timed shape: a rank's 8 channels of B = 2 * PENCIL_C
+#: samples at P = 2, the four-card cell's
+PENCIL_C = 2**22
+
+
+def pencil_ulps(P: int) -> int:
+    """Float32 ulps of ``P * max|z|`` within which the DFT pass agrees with
+    the einsum, component by component: each side rounds ``2P`` fused
+    multiply-adds of at most ``P * max|z|`` (half an ulp each), and the
+    twiddle turns the difference through ``sqrt(2)`` and adds two roundings
+    of its own a side; ``2*sqrt(2)*P + 2 <= 3P + 2``."""
+    return 3 * P + 2
+
+
+def pencil_passes(torch, kernels, dev) -> dict:
+    """Phase 2.1: the pencil FFT's local passes (``csrc/pencil.cu``) on the
+    card against their plain versions (the composed steps the transform ran
+    before: the einsum, ``cmul_ref`` and the packs) at :data:`PENCIL_CASES`:
+    the twiddle-and-pack bit for bit, each DFT pass within
+    :func:`pencil_ulps` of the einsum and, against a float64 DFT of the same
+    complex64 constants, no worse than the einsum (max and relative L2);
+    then each pass timed at the cell's (2, 8, 2^22) beside its byte bound,
+    its plain version and the composed steps it replaces as the transform
+    ran them (``kernels.cmul``, the CUDA kernel, for the products).
+    Returns the phase's numbers for the kernels line."""
+    from opticomlib_tpu_torch.parallel.dfft import _transform_consts
+    t0 = time.perf_counter()
+    c128 = torch.complex128
+    g = torch.Generator(device=dev).manual_seed(26)
+    kernels.reset_launches()
+    n_launch, worst, worst_abs, vs64 = 0, 0.0, 0.0, []
+
+    def field(n):
+        return torch.randn(n, generator=g, device=dev,
+                           dtype=torch.complex64) * 0.3
+
+    def err64(x, ref):
+        d = x.to(c128) - ref
+        return float(d.abs().max()), float(d.norm() / ref.norm())
+
+    for P, lead, C, off in PENCIL_CASES:
+        shape = (P,) + lead + (C,)
+        n = int(np.prod(shape))
+        z = field(n + off)[off:].reshape(shape)
+        W_f, W_i, tw_f, tw_i = _transform_consts(P, P * C, P - 1, dev)
+        tol = pencil_ulps(P) * 2.0**-23 * P * float(z.abs().max())
+        bcast = (P,) + (1,) * len(lead) + (C,)
+        for W, tw in ((W_f, tw_f), (W_i, None)):
+            got = kernels.pencil_dft(z, W, tw)
+            want = kernels.pencil_dft_ref(z, W, tw)
+            n_launch += 1
+            e = float((torch.view_as_real(got)
+                       - torch.view_as_real(want)).abs().max())
+            check(e <= tol, 2, f"pencil_dft {shape} offset {off} twiddle "
+                  f"{tw is not None}: {e:.3g} from the einsum, over "
+                  f"{pencil_ulps(P)} ulps of P max|z| ({tol:.3g})")
+            worst = max(worst, e / (2.0**-23 * P * float(z.abs().max())))
+            worst_abs = max(worst_abs, e)
+            ref = torch.einsum("kn,n...c->k...c", W.to(c128), z.to(c128))
+            if tw is not None:
+                ref = ref * tw.to(c128).reshape(bcast)
+            (mk, lk), (me, le) = err64(got, ref), err64(want, ref)
+            vs64.append((mk, me, lk, le))
+            check(mk <= me and lk <= le, 2, f"pencil_dft {shape} offset "
+                  f"{off} twiddle {tw is not None}: against float64 max "
+                  f"{mk:.4g} rel L2 {lk:.4g}, the einsum's {me:.4g} / "
+                  f"{le:.4g}")
+            del got, want, ref
+        u = field(n + off)[off:].reshape(lead + (P * C,))
+        got = kernels.pencil_twiddle_pack(u, tw_i, P)
+        n_launch += 1
+        check(torch.equal(got, kernels.pencil_twiddle_pack_ref(u, tw_i, P)),
+              2, f"pencil_twiddle_pack {tuple(u.shape)} offset {off} "
+              "differs from cmul and the pack")
+        del z, u, got
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["pencil"] == n_launch, 2, f"pencil launches "
+          f"{kernels.LAUNCHES['pencil']}, expected {n_launch}")
+
+    # the cell's shape: a rank's 8 channels of 2^23 samples at P = 2
+    P, lead, C = 2, (8,), PENCIL_C
+    B = P * C
+    W_f, W_i, tw_f, tw_i = _transform_consts(P, B, 1, dev)
+    z, u = field(P * 8 * C).reshape((P,) + lead + (C,)), field(8 * B).reshape(
+        lead + (B,))
+
+    def forward_composed():
+        y = torch.einsum("kn,n...c->...kc", W_f, z).reshape(lead + (B,))
+        y = kernels.cmul(y.contiguous(), tw_f)
+        return y.reshape(lead + (P, C)).movedim(-2, 0).contiguous()
+
+    pairs = {"pencil": (lambda: kernels.pencil_dft(z, W_f, tw_f),
+                        lambda: kernels.pencil_dft_ref(z, W_f, tw_f)),
+             "pencil_twiddle_pack": (
+                 lambda: kernels.pencil_twiddle_pack(u, tw_i, P),
+                 lambda: kernels.pencil_twiddle_pack_ref(u, tw_i, P)),
+             "pencil_idft": (lambda: kernels.pencil_dft(z, W_i),
+                             lambda: kernels.pencil_dft_ref(z, W_i))}
+    ms, ms10 = {}, {}
+    for k, fns in pairs.items():
+        ms[k], ms10[k] = timed(torch, *fns)
+    composed = {k: cuda_ms(torch, f, inner=10) for k, f in {
+        "pencil": forward_composed,
+        "pencil_twiddle_pack": lambda: kernels.cmul(u, tw_i).reshape(
+            lead + (P, C)).movedim(-2, 0).contiguous(),
+        "pencil_idft": lambda: torch.einsum(
+            "nk,k...c->n...c", W_i, z).contiguous()}.items()}
+    # bytes: the field read once and written once (8 B a sample each way),
+    # the twiddle (B samples) read once; flop a sample: P complex
+    # multiply-adds (8 each) and the twiddle's product (6)
+    n = z.numel()
+    bounds = {"pencil": bound_ms(16 * n + 8 * B, (8 * P + 6) * n),
+              "pencil_twiddle_pack": bound_ms(16 * n + 8 * B, 6 * n),
+              "pencil_idft": bound_ms(16 * n, 8 * P * n)}
+    del z, u
+    print("phase 2.1 pencil passes: ok " + "; ".join(
+        f"{k} {ms10[k][0]:.4f} ms ({bounds[k][0] / ms10[k][0]:.0%} of its "
+        f"{bounds[k][0]:.4f} ms {bounds[k][1]} bound) vs plain "
+        f"{ms10[k][1]:.4f} ms queued, one launch {ms[k][0]:.4f} / "
+        f"{ms[k][1]:.4f} ms, the composed steps it replaces "
+        f"{composed[k]:.4f} ms" for k in pairs)
+        + f" (at (2, 8, 2^22)); {len(PENCIL_CASES)} cases, {n_launch} "
+        f"launches: twiddle-and-pack bit-equal, the DFT within "
+        f"{worst:.2f} ulps of P max|z| of the einsum; against float64 "
+        f"(max, rel L2; kernel / einsum): "
+        + ", ".join(f"{mk:.3g}/{me:.3g} {lk:.3g}/{le:.3g}"
+                    for mk, me, lk, le in vs64[:6])
+        + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"err": worst_abs, "ms": ms, "ms10": ms10,
+            "bounds": bounds, "composed": composed}
+
+
 def main() -> None:
     import torch
 
@@ -1609,9 +1760,10 @@ def main() -> None:
                             dtype=torch.complex64) * 0.1).contiguous()
 
     coeff = 1.3 * 0.38553 / 2  # gamma * h0 / 2 of the slice's first step
-    # fir_filter, the staged DAC's kernel, is checked in phase 8, and
-    # fbg_rk4, the grating's, in phase 20
-    err = {k: 0.0 for k in REPLACES if k not in ("fir_filter", "fbg_rk4")}
+    # fir_filter, the staged DAC's kernel, is checked in phase 8,
+    # fbg_rk4, the grating's, in phase 20, and the pencil passes in 2.1
+    err = {k: 0.0 for k in REPLACES
+           if k not in ("fir_filter", "fbg_rk4", "pencil")}
     # (2, 2^24) is config 4's 2-polarisation field, multiplied by one
     # 2^24 spectral row; the negative coefficient is how the Yoshida w0
     # substep and every DBP span kick
@@ -2005,6 +2157,13 @@ def main() -> None:
     del S, phi24, m24, err["power_max"]
     del eye16, amp16, t22, y22, rows16, uni16, rows_cases, pairs_cases
     del hist_timed, caught, v_small, m_small, y_all, amp
+
+    # ---- phase 2.1: the pencil FFT's local passes ----
+    pencil = pencil_passes(torch, kernels, dev)
+    err["pencil"] = pencil["err"]
+    for d, k in ((ms, "ms"), (ms10, "ms10"), (bounds, "bounds"),
+                 (composed, "composed")):
+        d.update(pencil[k])
 
     # ---- phase 3: config 2, card vs CPU on the same noise, 2^20 samples ----
     n = SMALL_BITS * SPS
@@ -3217,6 +3376,10 @@ def main() -> None:
             "cmul_max": {"power_max": "2^24, the maximum alone"},
             "fir_filter": {"fir_filter_64": "2^24 samples, 64 taps"},
             "histogram2d": hist_also,
+            "pencil": {"pencil_twiddle_pack": "the inverse's twiddle and "
+                       "pack, (8, 2^23) -> (2, 8, 2^22)",
+                       "pencil_idft": "the inverse's DFT, (2, 8, 2^22), no "
+                       "twiddle"},
             "fbg_rk4": {"fbg_rk4_2^24_gauss": f"2^24 bins, {g20b['n_steps']} "
                         "steps (gaussian kL = 8, F = 10); plain_ms one call",
                         "fbg_rk4_2^20_512": "2^20 bins, 512 steps (uniform "
@@ -3247,6 +3410,9 @@ def main() -> None:
             if k == "strang_kicks" else {}),
          **({"shape": "2^24 bins, 512 steps (uniform kL = 2); plain_ms one "
                       "call"} if k == "fbg_rk4" else {}),
+         **({"shape": "(2, 8, 2^22), the forward DFT and twiddle; "
+                      "composed_ms: einsum, permute, cmul and pack"}
+            if k == "pencil" else {}),
          **({"also": [{"shape": shape, **numbers(key)}
                       for key, shape in also[k].items()]}
             if k in also else {})}

@@ -46,6 +46,9 @@ ENTRY_POINTS = {
         "adc_link_launch": [_P, _P, _LL, _P, _P, _F, _P]},
     "fir_filter": {
         "fir_launch": [_P, _P, _P, _LL, _I, _P]},
+    "pencil": {
+        "pencil_dft_launch": [_P, _P, _P, _P, _I, _LL, _LL, _P],
+        "pencil_twiddle_pack_launch": [_P, _P, _P, _I, _LL, _LL, _P]},
     "fbg_rk4": {
         "fbg_rk4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
                            _F, _P, _P, _LL, _P]},

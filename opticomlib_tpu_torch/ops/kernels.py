@@ -11,6 +11,7 @@ strang_kicks    Triton, triton_kernels    none (XLA's fusion)
 cmul            CUDA C++, csrc/*.cu       pallas_kernels._cmul_kernel
 spectral_phase  CUDA C++, csrc/cmul.cu    none (XLA's fusion)
 cmul_max        CUDA C++, csrc/cmul.cu    none (XLA's fusion)
+pencil          CUDA C++, csrc/pencil.cu  none (an einsum, XLA's fusion)
 histogram2d     CUDA C++, csrc/*.cu       pallas_kernels._hist_kernel
 adc_quantize    CUDA C++, csrc/*.cu       pallas_kernels._adc_kernel
 fir_filter      CUDA C++, csrc/*.cu       pallas_kernels._fir_kernel
@@ -28,6 +29,12 @@ alone (:func:`power_max`); both count as ``cmul_max`` launches.
 of its Strang substeps (``ops/ssfm.ssfm_o4_scan_inside``): the inverse
 FFT's 1/n, the trailing kick of one substep and the leading kick of the
 next, in registers.
+
+``pencil`` is the pencil FFT's local passes between its all-to-alls
+(``parallel/dfft.py``), each written straight into the layout the next
+all-to-all sends: the rank-axis DFT with or without its twiddle
+(:func:`pencil_dft`) and the inverse's twiddle with its pack
+(:func:`pencil_twiddle_pack`); both count as ``pencil`` launches.
 
 ``histogram2d`` has two wrappers over one kernel family: the table of index
 pairs (:func:`histogram2d`, the Pallas kernel's function) and its row-batched
@@ -59,6 +66,8 @@ __all__ = ["nl_halfstep", "nl_halfstep_ref", "strang_kicks",
            "strang_kicks_ref", "cmul", "cmul_ref",
            "spectral_scale", "spectral_phase", "spectral_phase_ref",
            "cmul_max", "cmul_max_ref", "power_max", "power_max_ref",
+           "pencil_dft", "pencil_dft_ref", "pencil_twiddle_pack",
+           "pencil_twiddle_pack_ref",
            "histogram2d", "histogram2d_ref", "histogram_rows",
            "histogram_rows_ref", "HIST_MAX_ROWS", "adc_quantize",
            "adc_quantize_ref", "adc_quantize_link", "adc_quantize_link_ref",
@@ -67,8 +76,9 @@ __all__ = ["nl_halfstep", "nl_halfstep_ref", "strang_kicks",
 
 #: kernel launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"nl_halfstep": 0, "strang_kicks": 0, "cmul": 0,
-            "spectral_phase": 0, "cmul_max": 0, "histogram2d": 0,
-            "adc_quantize": 0, "fir_filter": 0, "fbg_rk4": 0}
+            "spectral_phase": 0, "cmul_max": 0, "pencil": 0,
+            "histogram2d": 0, "adc_quantize": 0, "fir_filter": 0,
+            "fbg_rk4": 0}
 
 
 def reset_launches() -> None:
@@ -365,6 +375,107 @@ def power_max(A: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(A):
         return power_max_ref(A)
     return _max_launch("power_max_launch", A, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the pencil FFT's local passes between its all-to-alls
+# ---------------------------------------------------------------------------
+def pencil_dft_ref(z: torch.Tensor, W: torch.Tensor,
+                   tw=None) -> torch.Tensor:
+    """Plain version, the composed operations of the transform: without
+    ``tw`` the einsum ``W[n, k] z[k, ..., c]``; with it the einsum into
+    ``(..., k, c)``, :func:`cmul_ref` by ``tw`` along the flattened
+    ``(k, c)`` row, and the pack back to ``(P, ..., C)``."""
+    if tw is None:
+        return torch.einsum("nk,k...c->n...c", W, z).contiguous()
+    P, C = z.shape[0], z.shape[-1]
+    lead = z.shape[1:-1]
+    y = torch.einsum("kn,n...c->...kc", W, z).reshape(lead + (P * C,))
+    y = cmul_ref(y.contiguous(), tw)
+    return y.reshape(lead + (P, C)).movedim(-2, 0).contiguous()
+
+
+def pencil_dft(z: torch.Tensor, W: torch.Tensor, tw=None) -> torch.Tensor:
+    """The pencil FFT's P-point DFT over the rank axis, with its twiddle:
+    ``y[k, ..., c] = tw[k*C + c] * sum_n W[k, n] * z[n, ..., c]``.
+
+    ``z``: complex64 ``(P, ..., C)``, the all-to-all's output; ``W``:
+    complex64 ``(P, P)``; ``tw``: complex64 ``(P*C,)`` or None (no
+    twiddle).  Returns a new ``(P, ..., C)`` tensor, the layout the next
+    all-to-all sends.  The kernel sums each component with fused
+    multiply-adds in ``n`` order and rounds the twiddle product as
+    :func:`cmul`; it can differ from :func:`pencil_dft_ref` (the einsum)
+    only in the order of those roundings (on an H100 the two agree bit for
+    bit)."""
+    _check(z, "z", torch.complex64)
+    _check(W, "W", torch.complex64)
+    P = W.shape[0] if W.ndim == 2 else 0
+    if W.shape != (P, P) or P < 1 or z.ndim < 2 or z.shape[0] != P:
+        raise ValueError(f"pencil_dft takes W (P, P) and z (P, ..., C), got "
+                         f"{tuple(W.shape)} and {tuple(z.shape)}")
+    C = z.shape[-1]
+    if tw is not None:
+        _check(tw, "tw", torch.complex64)
+        if tw.shape != (P * C,):
+            raise ValueError(f"pencil_dft takes a twiddle of P*C = {P * C} "
+                             f"samples, got {tuple(tw.shape)}")
+    if not _on_cuda(z, W, *(() if tw is None else (tw,))):
+        return pencil_dft_ref(z, W, tw)
+    from . import _build
+    lib = _build.load_library("pencil")
+    y = torch.empty_like(z)
+    if z.numel():
+        with torch.cuda.device(z.device):
+            err = lib.pencil_dft_launch(
+                z.data_ptr(), W.data_ptr(),
+                None if tw is None else tw.data_ptr(), y.data_ptr(), P,
+                z.numel() // (P * C), C, _raw_stream(z.device.index))
+        _build.check(lib, err, "pencil_dft")
+        LAUNCHES["pencil"] += 1
+    return y
+
+
+def pencil_twiddle_pack_ref(u: torch.Tensor, tw: torch.Tensor,
+                            P: int) -> torch.Tensor:
+    """Plain version: :func:`cmul_ref` by ``tw``, then the pack of the
+    last axis's ``P`` blocks to the front."""
+    lead, C = u.shape[:-1], u.shape[-1] // P
+    return cmul_ref(u, tw).reshape(lead + (P, C)).movedim(-2, 0).contiguous()
+
+
+def pencil_twiddle_pack(u: torch.Tensor, tw: torch.Tensor,
+                        P: int) -> torch.Tensor:
+    """The inverse pencil FFT's twiddle and pack:
+    ``out[p, ..., c] = u[..., p*C + c] * tw[p*C + c]``.
+
+    ``u``: complex64 ``(..., B)`` with ``B % P == 0``, the inverse FFT's
+    output; ``tw``: complex64 ``(B,)``.  Returns a new ``(P, ..., B/P)``
+    tensor, the layout the all-to-all sends.  The product rounds as
+    :func:`cmul`, so the result is bit-equal to
+    :func:`pencil_twiddle_pack_ref` on the card."""
+    _check(u, "u", torch.complex64)
+    _check(tw, "tw", torch.complex64)
+    P = int(P)
+    if u.ndim < 1 or P < 1 or u.shape[-1] % P or tw.shape != u.shape[-1:]:
+        raise ValueError(
+            f"pencil_twiddle_pack takes u (..., B) with B divisible by P = "
+            f"{P} and a twiddle of B, got {tuple(u.shape)} and "
+            f"{tuple(tw.shape)}")
+    if not _on_cuda(u, tw):
+        return pencil_twiddle_pack_ref(u, tw, P)
+    from . import _build
+    lib = _build.load_library("pencil")
+    C = u.shape[-1] // P
+    out = torch.empty((P,) + u.shape[:-1] + (C,), dtype=u.dtype,
+                      device=u.device)
+    if u.numel():
+        with torch.cuda.device(u.device):
+            err = lib.pencil_twiddle_pack_launch(
+                u.data_ptr(), tw.data_ptr(), out.data_ptr(), P,
+                u.numel() // u.shape[-1], C, _raw_stream(u.device.index))
+        _build.check(lib, err, "pencil_twiddle_pack")
+        LAUNCHES["pencil"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,16 @@ Decomposition (N = P * B, rank p holds the contiguous block
                    * sum_{n1} x[n1*B + n2] e^{-2 pi i n1 k1 / P}
 
 so the chain is: all-to-all transpose (bring all n1 local for a slice of
-n2) -> P-point DFT over the rank axis as a small ``einsum`` -> twiddle
-(``kernels.cmul``) -> all-to-all transpose -> local B-point FFT
-(``torch.fft``).  The spectrum comes out in the *strided* layout: rank q
-holds ``X[q + P*k2]`` for k2 in [0, B).  That layout is fine for SSFM (the
-linear operator is sampled at the strided frequencies,
-:func:`strided_w_grid`) and the inverse transform undoes the permutation,
-returning the natural block layout.
+n2) -> P-point DFT over the rank axis and twiddle, one pass written in the
+layout the next transpose sends (``kernels.pencil_dft``; on the CPU its
+plain version, an ``einsum`` and ``kernels.cmul_ref``) -> all-to-all
+transpose -> local B-point FFT (``torch.fft``).  The inverse runs the chain
+backwards, its twiddle and pack one pass (``kernels.pencil_twiddle_pack``).
+The spectrum comes out in the *strided* layout: rank q holds
+``X[q + P*k2]`` for k2 in [0, B).  That layout is fine for SSFM (the linear
+operator is sampled at the strided frequencies, :func:`strided_w_grid`) and
+the inverse transform undoes the permutation, returning the natural block
+layout.
 
 Constraint: B must be divisible by P (i.e. N divisible by P^2).
 
@@ -143,12 +146,12 @@ def pencil_fft(x: torch.Tensor, axis) -> torch.Tensor:
     z = _all_to_all(x.reshape(lead + (P, C)).movedim(-2, 0), axis)
     # z[n1, ..., c] = x_global[n1*B + q*C + c]
 
-    # 2) P-point DFT over the n1 axis, 3) twiddle e^{-2 pi i k1 n2 / N}
-    y = torch.einsum("kn,n...c->...kc", W_f, z).reshape(lead + (B,))
-    y = kernels.cmul(y.contiguous(), tw_f)
+    # 2) P-point DFT over the n1 axis, 3) twiddle e^{-2 pi i k1 n2 / N}:
+    # one pass, y[k1, ..., c] in the layout the next transpose sends
+    y = kernels.pencil_dft(z, W_f, tw_f)
 
     # 4) transpose: bring all n2 local for k1 = q
-    y = _all_to_all(y.reshape(lead + (P, C)).movedim(-2, 0), axis)
+    y = _all_to_all(y, axis)
     # y[p, ..., c] corresponds to n2 = p*C + c, k1 = q
     y = y.movedim(0, -2).reshape(lead + (B,))
 
@@ -161,19 +164,20 @@ def pencil_ifft(X: torch.Tensor, axis) -> torch.Tensor:
     natural block layout."""
     P, q = axis.size, axis.index
     B = X.shape[-1]
-    C = B // P
     lead = X.shape[:-1]
     _, W_i, _, tw_i = _transform_consts(P, B, q, X.device)
 
-    # 5') local inverse FFT over k2: u[n2], k1 = q; 3') conjugate twiddle
-    u = kernels.cmul(torch.fft.ifft(X, dim=-1).contiguous(), tw_i)
+    # 5') local inverse FFT over k2: u[n2], k1 = q; 3') conjugate twiddle,
+    # one pass with the pack into u[p, ..., c], n2 = p*C + c
+    u = kernels.pencil_twiddle_pack(
+        torch.fft.ifft(X, dim=-1).contiguous(), tw_i, P)
 
     # 4') transpose: redistribute n2 slices, gather all k1
-    u = _all_to_all(u.reshape(lead + (P, C)).movedim(-2, 0), axis)
+    u = _all_to_all(u, axis)
     # u[k1, ..., c], local n2 = q*C + c
 
     # 2') inverse P-point DFT over k1: r[n1, ..., c] = x[n1*B + q*C + c]
-    r = torch.einsum("nk,k...c->n...c", W_i, u)
+    r = kernels.pencil_dft(u, W_i)
 
     # 1') transpose back to contiguous blocks
     r = _all_to_all(r, axis)

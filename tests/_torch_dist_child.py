@@ -205,7 +205,8 @@ def check_scheme_validation(ctx):
 
 def check_pencil_fft(ctx):
     """pencil_fft against torch.fft.fft in the strided layout, and
-    pencil_ifft(pencil_fft(x)) = x, for a 1-D and a (2, n) field."""
+    pencil_ifft(pencil_fft(x)) = x, for a 1-D, a (2, n) and a (3, n)
+    field."""
     import torch
     from opticomlib_tpu_torch.parallel.dfft import (pencil_fft, pencil_ifft,
                                                     strided_k_local)
@@ -214,7 +215,9 @@ def check_pencil_fft(ctx):
     errs = {}
     for name, x in (("1d", white(2**12, 31, 1.0)),
                     ("2d", np.stack([white(2**10, 32, 1.0),
-                                     white(2**10, 33, 0.5)]))):
+                                     white(2**10, 33, 0.5)])),
+                    ("3ch", np.stack([white(2**10, 34 + c, 0.5 + 0.25 * c)
+                                      for c in range(3)]))):
         B = x.shape[-1] // P
         block = torch.from_numpy(x[..., q * B:(q + 1) * B].copy())
         X = pencil_fft(block, axis)

@@ -149,6 +149,73 @@ def test_cmul_max_propagates_nan_and_inf(cuda_device, where):
     assert np.isnan(kernels.cmul_max(A, H)[1].item())
 
 
+#: (P, lead, C, offset in samples): the four-card cell's rank field (8
+#: channels of B = 2^23 at P = 2) and the same 2^26 samples at P = 1 and 4,
+#: then small fields on every path of the launchers: C odd (one sample a
+#: thread) and even (16-byte vectors), views 8 bytes off a 16-byte boundary,
+#: the any-P kernel (P = 3 and 8)
+_PENCIL_CASES = [(2, (8,), 2**22, 0), (1, (8,), 2**23, 0),
+                 (4, (8,), 2**21, 0)] + [
+    (P, (3, 2), C, off) for P in (1, 2, 3, 4, 8) for C in (1003, 1004)
+    for off in (0, 1)]
+
+
+def _pencil_inputs(P, lead, C, off, seed, device):
+    """A contiguous complex64 ``(P, *lead, C)`` field starting ``off``
+    samples into its allocation, and the transform constants of the last
+    rank of a P-rank axis (both twiddles non-trivial for P > 1)."""
+    from opticomlib_tpu_torch.parallel.dfft import _transform_consts
+    shape = (P,) + lead + (C,)
+    n = int(np.prod(shape))
+    z = _field((n + off,), seed, device)[off:].reshape(shape)
+    assert z.is_contiguous()
+    return z, _transform_consts(P, P * C, P - 1, device)
+
+
+@pytest.mark.parametrize("P,lead,C,off", _PENCIL_CASES)
+def test_pencil_dft_kernel_matches_einsum(cuda_device, P, lead, C, off):
+    """The DFT pass, with the forward twiddle and without (the inverse),
+    against its plain version (the einsum, ``cmul`` and the pack): each
+    component within ``3P + 2`` float32 ulps of ``P * max|z|`` (each side
+    rounds 2P fused multiply-adds of at most that size, and the twiddle
+    turns the difference through sqrt(2) and adds two roundings a side:
+    ``2*sqrt(2)*P + 2``); and against a float64 DFT of the same complex64
+    constants, no farther than the einsum, max and relative L2."""
+    z, (W_f, W_i, tw_f, _) = _pencil_inputs(P, lead, C, off, 27, cuda_device)
+    ulp = 2.0**-23 * P * float(z.abs().max())
+    c128 = torch.complex128
+    for W, tw in ((W_f, tw_f), (W_i, None)):
+        got = kernels.pencil_dft(z, W, tw)
+        want = kernels.pencil_dft_ref(z, W, tw)
+        torch.cuda.synchronize()
+        assert got.shape == z.shape and got.is_contiguous()
+        err = float((torch.view_as_real(got)
+                     - torch.view_as_real(want)).abs().max())
+        assert err <= (3 * P + 2) * ulp, (err / ulp, tw is None)
+        ref = torch.einsum("kn,n...c->k...c", W.to(c128), z.to(c128))
+        if tw is not None:
+            ref = ref * tw.to(c128).reshape((P,) + (1,) * len(lead) + (C,))
+        d_got, d_want = got.to(c128) - ref, want.to(c128) - ref
+        assert d_got.abs().max() <= d_want.abs().max()
+        assert d_got.norm() <= d_want.norm()
+    assert kernels.LAUNCHES["pencil"] == 2
+
+
+@pytest.mark.parametrize("P,lead,C,off", _PENCIL_CASES)
+def test_pencil_twiddle_pack_kernel_bit_equal_to_plain(cuda_device, P, lead,
+                                                       C, off):
+    """The inverse's twiddle-and-pack gives the bits of ``cmul`` by the
+    twiddle and the pack: the kernel rounds its product as ``A * B`` does
+    on the card."""
+    z, consts = _pencil_inputs(P, lead, C, off, 28, cuda_device)
+    u = z.reshape(lead + (P * C,))
+    got = kernels.pencil_twiddle_pack(u, consts[3], P)
+    torch.cuda.synchronize()
+    assert got.shape == z.shape and got.is_contiguous()
+    assert torch.equal(got, kernels.pencil_twiddle_pack_ref(u, consts[3], P))
+    assert kernels.LAUNCHES["pencil"] == 1
+
+
 def _fiber_inputs(monkeypatch, call):
     """The arguments the link hands its adaptive fiber loop during
     ``call()``, the field cloned."""
@@ -819,6 +886,25 @@ def test_sharded_world_size_1_nccl(cuda_device, nccl_mesh, name, kw,
     # padded buffer): 16-byte aligned for cmul's vector path
     assert out.local.data_ptr() % 16 == 0
     assert out.local.untyped_storage().nbytes() == 8 * n
+
+
+@pytest.mark.parametrize("lead", [(), (2,), (3,), (3, 2)])
+def test_pencil_transforms_launch_their_passes(cuda_device, nccl_mesh, lead):
+    """``pencil_fft`` and ``pencil_ifft`` over NCCL at world size 1 run one
+    pass forward and two inverse, nothing else in their place: the spectrum
+    is ``torch.fft.fft``'s (P = 1: the strided layout is the natural one)
+    and the round trip gives the field back."""
+    from opticomlib_tpu_torch.parallel.dfft import pencil_fft, pencil_ifft
+    axis = nccl_mesh.axis("time")
+    x = _field(lead + (2**20,), 29, cuda_device)
+    X = pencil_fft(x, axis)
+    assert kernels.LAUNCHES["pencil"] == 1
+    back = pencil_ifft(X, axis)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pencil"] == 3
+    want = torch.fft.fft(x, dim=-1)
+    assert float((X - want).abs().max() / want.abs().max()) <= 1e-6
+    assert float((back - x).abs().max() / x.abs().max()) <= 1e-6
 
 
 def test_mesh_of_cards_refuses_cpu_tensor(cuda_device, nccl_mesh):

@@ -180,6 +180,69 @@ def test_cmul_max_ref_is_cmul_then_max_power(shape):
     assert torch.isnan(kernels.power_max(A))
 
 
+def _pencil_consts(P: int, B: int) -> tuple:
+    """``(W_f, W_i, tw_f, tw_i)`` of the last rank of a P-rank axis (both
+    twiddles non-trivial for P > 1), as ``parallel.dfft`` builds them."""
+    from opticomlib_tpu_torch.parallel.dfft import _transform_consts
+    return _transform_consts(P, B, P - 1, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("lead", [(), (3,), (3, 2)])
+def test_pencil_dft_ref_is_the_composed_transform_steps(P, lead):
+    """The DFT pass's plain version is the steps the pencil FFT composed
+    before it, bit for bit: with the twiddle, the einsum into ``(..., k,
+    c)``, ``cmul`` and the pack into ``(P, ..., C)``; without, the inverse's
+    einsum.  Both are the DFT of float64 arithmetic to float32 round-off
+    (C = 7, not a multiple of 4)."""
+    C = 7
+    B = P * C
+    W_f, W_i, tw_f, _ = _pencil_consts(P, B)
+    z = torch.from_numpy(_field((P,) + lead + (C,), 19))
+    y = torch.einsum("kn,n...c->...kc", W_f, z).reshape(lead + (B,))
+    y = kernels.cmul(y.contiguous(), tw_f)
+    want = y.reshape(lead + (P, C)).movedim(-2, 0).contiguous()
+    got = kernels.pencil_dft(z, W_f, tw_f)
+    assert got.shape == (P,) + lead + (C,) and got.is_contiguous()
+    assert torch.equal(got, want)
+    got_i = kernels.pencil_dft(z, W_i)
+    assert got_i.is_contiguous()
+    assert torch.equal(got_i, torch.einsum("nk,k...c->n...c", W_i, z))
+    zd = z.numpy().astype(np.complex128)
+    twd = tw_f.numpy().astype(np.complex128).reshape(
+        (P,) + (1,) * len(lead) + (C,))
+    for W, tw, out in ((W_f, twd, got), (W_i, 1.0, got_i)):
+        ref = np.einsum("kn,n...c->k...c", W.numpy().astype(np.complex128),
+                        zd) * tw
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                                   atol=2e-6 * np.abs(ref).max())
+    assert kernels.LAUNCHES["pencil"] == 0  # CPU: the plain version
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("lead", [(), (3,), (3, 2)])
+def test_pencil_twiddle_pack_ref_is_cmul_then_pack(P, lead):
+    """The inverse's twiddle-and-pack plain version is ``cmul`` by the
+    twiddle and the pack of the last axis's P blocks to the front, bit for
+    bit: ``out[p, ..., c] = u[..., p*C + c] * tw[p*C + c]``."""
+    C = 7
+    B = P * C
+    tw_i = _pencil_consts(P, B)[3]
+    u = torch.from_numpy(_field(lead + (B,), 20))
+    want = kernels.cmul(u, tw_i).reshape(lead + (P, C)).movedim(
+        -2, 0).contiguous()
+    got = kernels.pencil_twiddle_pack(u, tw_i, P)
+    assert got.shape == (P,) + lead + (C,) and got.is_contiguous()
+    assert torch.equal(got, want)
+    # the layout, block by block (the CPU's vector and scalar complex
+    # products round apart, so to one rounding)
+    for p in range(P):
+        torch.testing.assert_close(got[p], u[..., p * C:(p + 1) * C]
+                                   * tw_i[p * C:(p + 1) * C],
+                                   rtol=2.0**-22, atol=0)
+    assert kernels.LAUNCHES["pencil"] == 0
+
+
 @pytest.mark.parametrize("n,nt,ny", [(4096, 1, 4096), (5000, 8, 64)])
 def test_histogram2d_ref_matches_pallas(n, nt, ny):
     rng = np.random.default_rng(6)
@@ -282,12 +345,22 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(kernels.power_max(A), kernels.power_max_ref(A))
     assert torch.equal(kernels.strang_kicks(A.clone(), 0.5, 0.2, -0.1),
                        kernels.strang_kicks_ref(A, 0.5, 0.2, -0.1))
+    z, u, tw = A.reshape(2, 3, 50), A.reshape(3, 100), B[:100].contiguous()
+    W = torch.tensor([[1, 1], [1, -1]], dtype=torch.complex64)
+    assert torch.equal(kernels.pencil_dft(z, W, tw),
+                       kernels.pencil_dft_ref(z, W, tw))
+    assert torch.equal(kernels.pencil_dft(z, W), kernels.pencil_dft_ref(z, W))
+    assert torch.equal(kernels.pencil_twiddle_pack(u, tw, 2),
+                       kernels.pencil_twiddle_pack_ref(u, tw, 2))
     assert kernels.LAUNCHES == {"nl_halfstep": 0, "strang_kicks": 0,
                                 "cmul": 0, "spectral_phase": 0,
-                                "cmul_max": 0, "histogram2d": 0,
-                                "adc_quantize": 0, "fir_filter": 0,
-                                "fbg_rk4": 0}
+                                "cmul_max": 0, "pencil": 0,
+                                "histogram2d": 0, "adc_quantize": 0,
+                                "fir_filter": 0, "fbg_rk4": 0}
     assert "triton" not in sys.modules
+
+
+_EYE2 = torch.eye(2, dtype=torch.complex64)
 
 
 @pytest.mark.parametrize("call", [
@@ -372,6 +445,40 @@ def test_wrappers_take_plain_path_on_cpu():
     lambda: kernels.power_max(torch.zeros((2, 8), dtype=torch.complex64)
                               [:, ::2]),                           # layout
     lambda: kernels.power_max(torch.zeros(0, dtype=torch.complex64)),  # empty
+    lambda: kernels.pencil_dft(torch.zeros((2, 3), dtype=torch.complex128),
+                               _EYE2),                             # dtype
+    lambda: kernels.pencil_dft(torch.zeros((2, 3), dtype=torch.complex64),
+                               _EYE2.to(torch.complex128)),        # dtype
+    lambda: kernels.pencil_dft(torch.zeros((2, 6), dtype=torch.complex64)
+                               [:, ::2], _EYE2),                   # layout
+    lambda: kernels.pencil_dft(torch.zeros((3, 3), dtype=torch.complex64),
+                               _EYE2),                             # P
+    lambda: kernels.pencil_dft(torch.zeros((2, 3), dtype=torch.complex64),
+                               _EYE2[:, :1].contiguous()),         # W
+    lambda: kernels.pencil_dft(torch.zeros(2, dtype=torch.complex64),
+                               _EYE2),                             # 1-D
+    lambda: kernels.pencil_dft(torch.zeros((2, 3), dtype=torch.complex64),
+                               _EYE2, torch.ones(
+                                   5, dtype=torch.complex64)),     # twiddle
+    lambda: kernels.pencil_dft(torch.zeros((2, 3), dtype=torch.complex64),
+                               _EYE2, torch.ones(
+                                   6, dtype=torch.complex64,
+                                   device="meta")),                # devices
+    lambda: kernels.pencil_twiddle_pack(
+        torch.zeros(6, dtype=torch.complex128),
+        torch.ones(6, dtype=torch.complex64), 2),                  # dtype
+    lambda: kernels.pencil_twiddle_pack(
+        torch.zeros((2, 12), dtype=torch.complex64)[:, ::2],
+        torch.ones(6, dtype=torch.complex64), 2),                  # layout
+    lambda: kernels.pencil_twiddle_pack(
+        torch.zeros(6, dtype=torch.complex64),
+        torch.ones(6, dtype=torch.complex64), 4),                  # B % P
+    lambda: kernels.pencil_twiddle_pack(
+        torch.zeros(6, dtype=torch.complex64),
+        torch.ones(3, dtype=torch.complex64), 2),                  # twiddle
+    lambda: kernels.pencil_twiddle_pack(
+        torch.zeros(6, dtype=torch.complex64),
+        torch.ones(6, dtype=torch.complex64, device="meta"), 2),   # devices
 ])
 def test_wrappers_reject_bad_input(call):
     with pytest.raises((TypeError, ValueError)):
