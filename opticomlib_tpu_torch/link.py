@@ -28,9 +28,12 @@ operations are the JAX program's; what differs:
 * A WDM sweep runs the chain one channel at a time (channel ``c`` is the
   chain of ``seed + c``, with its own step count), keeps each channel's
   receiver window, and runs the receivers on the stacked windows: the KDE
-  histograms of all channels are one kernel launch.  With ``mesh=`` each
-  rank of the mesh runs its block of the channels and the per-channel
-  results are gathered (``torch.distributed``).
+  histograms of all channels are one kernel launch.  Each channel is a
+  ``sweep.channel`` span (``channel``, ``steps``) around its chain's
+  spans, and :data:`SWEEP_COUNTS` counts the sweeps and their channels on
+  the host.  With ``mesh=`` each rank of the mesh runs its block of the
+  channels and the per-channel results are gathered
+  (``torch.distributed``).
 * ``build_link(mesh=...)`` returns the sharded program of
   :mod:`opticomlib_tpu_torch.link_sharded`, which runs this module's chain
   (TX, stages, fiber dispatch, PD/LPF/ADC: ``_LinkChain``) on each rank's
@@ -78,9 +81,14 @@ from .utils.analysis import idb, idbm
 from .utils.profiling import span
 
 __all__ = ["FiberSpec", "DBPSpec", "EDFASpec", "DMSpec", "BPFSpec",
-           "RepeatSpec", "LinkSpec", "LinkProgram", "build_link"]
+           "RepeatSpec", "LinkSpec", "LinkProgram", "build_link",
+           "SWEEP_COUNTS"]
 
 f32 = np.float32
+
+#: the WDM sweeps run one channel at a time (:meth:`LinkProgram._sweep`):
+#: the sweeps made and the channels they ran, counted on the host
+SWEEP_COUNTS = {"sweeps": 0, "channels": 0}
 
 
 def _warn_rin(bad_channels=None):
@@ -486,7 +494,8 @@ def _ook_sweep_rows(wins, slots, bits_f32, sps, nslots, sps_resamp,
     windows ``(C, W)`` (the KDE histograms of all channels are one kernel
     launch), then per channel the threshold scan, slicer and error count on
     its slots ``(C, n_bits)``.  Returns :func:`_pack_rows` of the eye
-    scalars, ``rth``, ``n_err`` and the ``extra`` columns."""
+    scalars, ``rth``, ``n_err`` and the ``extra`` columns, and how the eye
+    ran (:class:`~opticomlib_tpu_torch.ops.eyeana.EyeScalars`' ``how``)."""
     eye = eye_scalars(wins, sps, nslots, sps_resamp)
     rth, n_err = [], []
     for c in range(wins.shape[0]):
@@ -497,7 +506,7 @@ def _ook_sweep_rows(wins, slots, bits_f32, sps, nslots, sps_resamp,
         n_err.append(e)
     rows, layout = _pack_rows(dict(rth=torch.stack(rth),
                                    n_err=torch.stack(n_err), **extra))
-    return torch.cat([eye.rows, rows], 1), eye.layout + layout
+    return torch.cat([eye.rows, rows], 1), eye.layout + layout, eye.how
 
 
 def _ppm_sweep_rows(wins, slots, info, M, decision, sps, nslots,
@@ -1172,21 +1181,34 @@ class LinkProgram(_LinkChain):
         ``noise[c]``), one channel at a time so the memory is one
         channel's, and keep what the receivers need: the eye window of
         ``v`` and the slot samples, stacked ``(C, ...)``, the step counts
-        (a tuple a channel) and the ``rin_ok`` flags ``(C,)``."""
+        (a tuple a channel) and the ``rin_ok`` flags ``(C,)``.
+
+        Each channel is a ``sweep.channel`` span (``channel``: its index;
+        ``steps``: its step counts, host ints already) around its input's
+        copy, its chain (whose ``tx`` / ``fiber`` / ``stage`` / ``rx.pd``
+        spans nest in it) and the copies of its window and slots;
+        :data:`SWEEP_COUNTS` counts the sweep and its channels.  Neither
+        launches, reads back or waits for anything."""
         if noise is not None and len(noise) != len(inputs):
             raise ValueError(
                 f"noise must be a list of {len(inputs)} per-channel dicts")
         w = eye_window(self.n, self.params.sps, nslots)
         wins, slots, steps, flags = [], [], [], []
-        for c in self._channels(len(inputs), mesh, axis):
-            out = self(torch.as_tensor(inputs[c], dtype=torch.float32,
-                                       device=self.device), seed=seed + c,
-                       noise=None if noise is None else noise[c])
-            # copies: a view would keep the channel's whole waveform alive
-            wins.append(out[0][:w].clone())
-            slots.append(out[1].clone())
+        mine = self._channels(len(inputs), mesh, axis)
+        for c in mine:
+            with span("sweep.channel", channel=c) as sp:
+                out = self(torch.as_tensor(inputs[c], dtype=torch.float32,
+                                           device=self.device),
+                           seed=seed + c,
+                           noise=None if noise is None else noise[c])
+                # copies: a view would keep the channel's whole waveform alive
+                wins.append(out[0][:w].clone())
+                slots.append(out[1].clone())
+                sp.set(steps=out[2])
             steps.append(out[2])
             flags.append(out[-1])
+        SWEEP_COUNTS["sweeps"] += 1
+        SWEEP_COUNTS["channels"] += len(mine)
         return (torch.stack(wins), torch.stack(slots), steps,
                 torch.stack(flags))
 
@@ -1220,13 +1242,14 @@ class LinkProgram(_LinkChain):
             mine = self._channels(n_channels, mesh, axis)
             wins, slots, steps, flags = self._sweep(bits, seed, noise,
                                                     nslots, mesh, axis)
-            with span("rx.eye"):
-                rows, layout = _ook_sweep_rows(
+            with span("rx.eye") as sp:
+                rows, layout, how = _ook_sweep_rows(
                     wins, slots, torch.as_tensor(
                         bits[mine].astype(np.float32), device=self.device),
                     self.params.sps, nslots, sps_resamp,
                     dict(rin_ok=flags, steps=_steps_rows(steps,
                                                          self.device)))
+                sp.set(graph=how)
             with span("rx.readback"):
                 r = _gathered_rows(rows, layout, mesh, axis)
             return SimpleNamespace(

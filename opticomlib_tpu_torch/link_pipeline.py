@@ -159,7 +159,7 @@ class PipelinedLinkProgram(torch.nn.Module):
         mine = self._channels(n_channels)
         bits = _sweep_bits(bits, n_channels, self.n_bits, prbs_order)
         wins, slots, flags = self._chain(bits, seed, noise, nslots, mine)
-        rows, layout = _ook_sweep_rows(
+        rows, layout, _ = _ook_sweep_rows(
             wins, slots, torch.as_tensor(bits[mine].astype(np.float32),
                                          device=self.device),
             self.params.sps, nslots, sps_resamp, dict(rin_ok=flags))

@@ -474,7 +474,7 @@ class ShardedLinkProgram(_LinkChain):
             bits, np.arange(n_channels) + seed, noise)
         v, slots, steps, _, rin_ok = self._core(blk, seeds, noise)
         sps = self.params.sps
-        rows, layout = _ook_sweep_rows(
+        rows, layout, _ = _ook_sweep_rows(
             self._time_gather(v, eye_window(self.n, sps, nslots)),
             self._time_gather(slots, self.n_bits),
             torch.as_tensor(bits[r0:r0 + len(blk)].astype(np.float32),

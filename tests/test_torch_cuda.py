@@ -524,6 +524,67 @@ def test_sweep_is_one_histogram_launch(cuda_device):
         assert abs(sw.threshold[c] - d.threshold) <= 1e-6 * abs(d.threshold)
 
 
+def test_config5_sweep_at_its_size_equals_its_channels(cuda_device,
+                                                       record_property):
+    """BASELINE config 5 at its defined size on one card (the benchmark's
+    cell ``ook_50km.wdm16_2e26``): ``dsp_wdm(16)`` at 2^26 samples a
+    channel on injected draws gives each channel ``c`` the step counts and
+    error count of ``dsp(seed=seed + c, noise=draws[c])`` and its threshold
+    (rel 1e-6); the voltage its forward hook sees for channel ``c`` is
+    bit-equal to ``jitted(bits[c], seed + c, draws[c])``'s; it records one
+    ``sweep.channel`` span a channel; its peak memory above the draws
+    (printed) is about one channel's working set, under 16 fields'."""
+    from opticomlib_tpu_torch.utils import profiling
+    C, n_bits, seed = 16, 2**20, 5
+    spec = link.LinkSpec(
+        Vpp=5, offset=-2.5, bias=-2.5, Vpi=5, P0=16.0,
+        pulse_shape="gaussian", loss_dB=3, ER_dB=26, pd_BW=7.5e9,
+        stages=(link.FiberSpec(length=50.0, alpha=0.2, beta_2=-21.0,
+                               gamma=1.3, phi_max=0.01),
+                link.EDFASpec(G=10, NF=5)))
+    prog = link.build_link(spec, n_bits, SimParams.create(
+        sps=64, R=10e9, _warn=False), device=cuda_device)
+    n = prog.n
+    gen = torch.Generator(device=cuda_device).manual_seed(27)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device)
+    draws = [dict(ase=[draw(4, n)], thermal=draw(n), shot=draw(n))
+             for _ in range(C)]
+    bits = prbs(15, length=C * n_bits)[0].reshape(C, n_bits)
+    vs = []
+    handle = prog.register_forward_hook(
+        lambda _m, _i, out: vs.append(out[0].cpu()))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    profiling.record(True)
+    try:
+        sw = prog.dsp_wdm(C, bits=bits, seed=seed, noise=draws)
+        recs = profiling.drain()
+    finally:
+        profiling.record(False)
+        handle.remove()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    record_property("sweep_peak_bytes_above_draws", peak)
+    print(f"config 5 sweep at 16 x 2^26: peak {peak / 2**30:.3f} GiB above "
+          f"the draws' {base / 2**30:.3f} GiB; steps "
+          f"{[s[0] for s in sw.n_steps]}")
+    assert len(vs) == C
+    assert [r["attrs"]["channel"] for r in recs
+            if r["name"] == "sweep.channel"] == list(range(C))
+    assert peak < C * n * 8
+    for c in range(C):
+        d = prog.dsp(bits=bits[c], seed=seed + c, nslots=8192,
+                     sps_resamp=None, noise=draws[c])
+        assert sw.n_steps[c] == d.n_steps and sw.n_errors[c] == d.n_errors
+        assert abs(sw.threshold[c] - d.threshold) <= 1e-6 * abs(d.threshold)
+        v = prog.jitted(torch.as_tensor(bits[c], dtype=torch.float32,
+                                        device=cuda_device),
+                        seed + c, draws[c])[0]
+        assert torch.equal(v.cpu(), vs[c]), c
+
+
 def test_wrappers_reject_mixed_devices(cuda_device):
     A = _field(16, 3, cuda_device)
     with pytest.raises(ValueError):
